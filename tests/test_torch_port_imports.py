@@ -1,0 +1,129 @@
+"""gm3d_tpu_torch stands on torch alone and starts without a GPU toolchain.
+
+Importing every module of the port in a fresh interpreter must pull in
+neither ``jax`` nor ``flax`` nor any module of ``gm3d_tpu``, and must work on
+a machine with no GPU and no ``nvcc`` (the kernels are built at first
+launch, not at import). Entry points default to the GPU and must say so
+instead of continuing on the CPU.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "gm3d_tpu_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import gm3d_tpu_torch
+names = ["gm3d_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    gm3d_tpu_torch.__path__, "gm3d_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "gm3d_tpu"))
+print("IMPORTED", len(names))
+print("FOREIGN", bad)
+"""
+
+
+def _run(code, **env):
+    full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(REPO), env=full_env, timeout=300)
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    # an empty PATH and no CUDA_HOME: no nvcc can be found, the import must not look
+    res = _run(_IMPORT_ALL, PATH="", CUDA_HOME="", CUDA_PATH="")
+    assert res.returncode == 0, res.stderr
+    lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
+    assert int(lines["IMPORTED"]) >= 25
+    assert lines["FOREIGN"] == "[]"
+
+
+def test_sources_name_neither_jax_nor_the_jax_package():
+    pattern = re.compile(r"import jax|from jax|import flax|from flax|import orbax|"
+                         r"gm3d_tpu(\.| import)")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 25
+    hits = []
+    for path in files:
+        for no, line in enumerate(path.read_text().splitlines(), 1):
+            # docstrings may cite the counterpart as a path (``gm3d_tpu/ops/fps.py``)
+            if pattern.search(line) and not line.lstrip().startswith("#"):
+                hits.append(f"{path.relative_to(REPO)}:{no}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_kernel_sources_ship_with_the_package():
+    for name in ("fps.cu", "knn.cu"):
+        text = (PKG / "csrc" / name).read_text()
+        assert 'extern "C"' in text and "torch/extension.h" not in text
+    from gm3d_tpu_torch.ops import _build
+
+    assert [p.name for p in _build.sources()] == ["fps.cu", "knn.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.library_path().parent == PKG / "build"
+    assert _build.library_path() == _build.library_path()  # a pure content hash
+
+
+def test_building_without_nvcc_raises(monkeypatch):
+    from gm3d_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has a CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    import yaml
+
+    from gm3d_tpu_torch.cli import export_model
+
+    tmp = tmp_path_factory.mktemp("imports")
+    cfg = tmp / "tiny.yaml"
+    cfg.write_text(yaml.safe_dump({"npoints": 32, "model": dict(
+        NAME="PointTransformer", trans_dim=16, depth=1, num_heads=2, cls_dim=3,
+        group_size=4, num_group=4, encoder_dims=16, drop_path_rate=0.0)}))
+    return str(cfg), export_model.main(["--config", str(cfg), "--device", "cpu",
+                                        "--out", str(tmp / "tiny.gm3dx"),
+                                        "--export_batch", "2"])
+
+
+def test_entry_points_default_to_cuda_and_say_so(artifact, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli import export_model
+    from gm3d_tpu_torch.cli import serve as serve_cli
+    from gm3d_tpu_torch.serve import ServingModel, load_artifact
+    from gm3d_tpu_torch.serve.server import make_server
+
+    cfg, art = artifact
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_model.main(["--config", cfg, "--out", str(tmp_path / "x.gm3dx")])
+    assert not (tmp_path / "x.gm3dx").exists()
+    for entry in (lambda: load_artifact(art), lambda: ServingModel(art),
+                  lambda: make_server(art), lambda: serve_cli.main(["--artifact", art])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+
+
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=str(REPO), timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
