@@ -16,11 +16,18 @@ Phases, each printing one JSON line when it ends:
               HTTP with dynamic batching, checks the answers against the
               same artifact on the CPU, and counts kernel launches
   throughput  clouds per second of ``ServingModel.predict``, fp32 and bf16
+  train       builds the GM3D student, its EMA copy and the frozen Point-MAE
+              teacher at full width (random weights from a seed), takes six
+              pretrain steps of 256 clouds, checks metrics, mask, launch
+              counts, parameter / EMA movement and the frozen coordinate head,
+              compares step 1 with the same step through the unfused modules,
+              and prints clouds per second of the step
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 
-``--phases env,build,kernels`` (development only) runs a prefix of the list.
+``--phases env,build,train`` (development only) runs some of the list and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -46,17 +53,23 @@ if not torch.cuda.is_available():
 
 from gm3d_tpu_torch.cli import export_model  # noqa: E402
 from gm3d_tpu_torch.ops import _build  # noqa: E402
+from gm3d_tpu_torch.models.blocks import PatchEncoder  # noqa: E402
+from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
+from gm3d_tpu_torch.ops import patch_embed as pe  # noqa: E402
 from gm3d_tpu_torch.ops.fps import fps_gather, fps_indices, fps_indices_torch  # noqa: E402
 from gm3d_tpu_torch.ops.knn import knn_indices, knn_indices_torch  # noqa: E402
+from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
 from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
+from gm3d_tpu_torch.train.optim import GM3D_COORD_HEAD  # noqa: E402
+from gm3d_tpu_torch.train.pretrain import METRIC_KEYS, make_gm3d_train_step  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
 DEV = torch.device("cuda", 0)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# the fp32 rate outside the tensor cores (both kernels are fp32 vector code).
+# the fp32 rate outside the tensor cores (all five kernels are fp32 vector code).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
@@ -130,6 +143,207 @@ def _grid_cloud(rng, batch, n, dup):
     pts = rng.integers(-64, 65, size=(batch, n, 3)).astype(np.float32) / 64.0
     pts[:, n - dup:] = pts[:, :dup]
     return pts
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """Largest absolute difference, and the same over the largest |want|."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    check(got.shape == want.shape, (got.shape, want.shape))
+    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    return err, err / max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
+
+
+def _random_patch_encoder(seed: int, out_dim: int = 384) -> PatchEncoder:
+    """A ``PatchEncoder`` on the card whose activations are of order one and
+    whose BatchNorm statistics are not the initial (0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = PatchEncoder(out_dim)
+    with torch.no_grad():
+        for m in enc.modules():
+            if hasattr(m, "running_mean"):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.3)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.2)
+            elif hasattr(m, "weight"):
+                fan_in = m.weight.shape[1]
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / fan_in ** 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.2)
+    return enc.to(DEV).eval()
+
+
+# Tolerances of the three matrix-product kernels, as the largest absolute
+# difference over the largest |plain value|. fp32: both sides sum 64 to 512
+# (weight gradients: B*L, up to 16384) fp32 products in different orders, the
+# kernel with fused multiply-adds and, for weight gradients, atomics. bf16:
+# both sides round an fp32 result to bf16 (8 bits of mantissa), so they may
+# differ by one rounding step.
+TOL_FP32, TOL_FP32_WGRAD, TOL_BF16 = 2e-5, 2e-4, 1.6e-2
+
+
+def _patch_embed_checks(rng) -> tuple[list[dict], dict]:
+    checks, worst = [], 0.0
+    for name, shape, seed in (("train step", (256, NUM_GROUP, GROUP_SIZE, 3), 0),
+                              ("odd B3 G5 S7", (3, 5, 7, 3), 1)):
+        enc = _random_patch_encoder(seed)
+        params = pe.params_from_module(enc)
+        x = torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32)).to(DEV)
+        got = pe.fused_patch_embed(x, params)
+        torch.cuda.synchronize()
+        want = pe.fused_patch_embed_plain(x, params)
+        with torch.no_grad():
+            module = enc(x)
+        err, rel = _rel_err(got, want)
+        _, rel_module = _rel_err(got, module)
+        check(rel <= TOL_FP32 and rel_module <= TOL_FP32,
+              f"patch_embed kernel off at {name}: {rel} vs plain, {rel_module} vs PatchEncoder "
+              f"(tolerance {TOL_FP32})")
+        worst = max(worst, err)
+        checks.append({"kernel": "patch_embed", "case": name, "shape": list(shape),
+                       "rel_err": rel, "rel_err_vs_module": rel_module, "tol": TOL_FP32,
+                       "equal": True})
+    b, g, s, c = 256, NUM_GROUP, GROUP_SIZE, 384
+    enc = _random_patch_encoder(0)
+    params = pe.params_from_module(enc)
+    x = torch.from_numpy((rng.standard_normal((b, g, s, 3)) * 0.3).astype(np.float32)).to(DEV)
+    ms = cuda_ms(lambda: pe.fused_patch_embed(x, params), runs=20, warmup=2)
+    plain = cuda_ms(lambda: pe.fused_patch_embed_plain(x, params), runs=20, warmup=2)
+    weight_bytes = sum(t.numel() for t in params) * 4
+    # per point: the four layers, the concat's first half once per group
+    flops = b * g * (s * 2.0 * (3 * 128 + 128 * 256 + 256 * 512 + 512 * c) + 2.0 * 256 * 512)
+    bound_ms, by = bound(b * g * s * 12 + weight_bytes + b * g * c * 4, flops)
+    timed = {"name": "patch_embed", "route": "cuda",
+             "source": "gm3d_tpu_torch/csrc/patch_embed.cu",
+             "replaces": "gm3d_tpu/ops/patch_embed.py:69", "shape": [b, g, s, 3],
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+             "bound_by": by, "library_ms": None}
+    return checks, timed
+
+
+def _attention_operands(rng, batch, length, dtype, bias, dim=384):
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)
+                                ).to(DEV).to(dtype)
+
+    # nn.Linear stores (out, in): the kernels get the transposed views
+    wqkv = t(3 * dim, dim, scale=0.05).t()
+    wproj = t(dim, dim, scale=0.05).t()
+    return (t(batch, length, dim), wqkv, t(3 * dim, scale=0.1) if bias else None, wproj,
+            t(dim, scale=0.1))
+
+
+def _library_attention(x, wqkv, bqkv, wproj, bproj, heads=6):
+    """The same function in PyTorch's library calls (a yardstick only)."""
+    batch, length, dim = x.shape
+    qkv = torch.nn.functional.linear(x, wqkv.t(), bqkv)
+    q, k, v = qkv.reshape(batch, length, 3, heads, dim // heads).permute(2, 0, 3, 1, 4)
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return torch.nn.functional.linear(o.transpose(1, 2).reshape(batch, length, dim),
+                                      wproj.t(), bproj)
+
+
+def _attention_flops(batch, length, dim, backward):
+    ld2, l2d = length * dim * dim, length * length * dim
+    # forward: qkv 6 LD^2, scores and attend 2 L^2 D each, projection 2 LD^2;
+    # backward from x: qkv, scores, attend again, then dWproj, do (2 LD^2
+    # each), da, dq, dk, dv (2 L^2 D each), dWqkv and dx (6 LD^2 each)
+    return batch * (22.0 * ld2 + 12.0 * l2d if backward else 8.0 * ld2 + 4.0 * l2d)
+
+
+def _attention_checks(rng) -> tuple[list[dict], dict, dict, list[dict]]:
+    checks, worst_f, worst_b = [], 0.0, 0.0
+    dim, heads = 384, 6
+    for length in (64, 39, 25, 1):
+        for batch in (256, 3):
+            for dtype in (torch.float32, torch.bfloat16):
+                for bias in (False, True):
+                    ops = _attention_operands(rng, batch, length, dtype, bias)
+                    got = fa.fused_attention(*ops, heads)
+                    torch.cuda.synchronize()
+                    want = fa.reference_attention(*ops, heads)
+                    tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+                    err, rel = _rel_err(got, want)
+                    check(got.dtype == dtype and rel <= tol,
+                          f"attention forward off at L{length} B{batch} {dtype} bias={bias}: "
+                          f"{rel} > {tol}")
+                    if dtype == torch.float32:
+                        worst_f = max(worst_f, err)
+                    checks.append({"kernel": "attention_fwd", "shape": [batch, length, dim],
+                                   "dtype": str(dtype)[6:], "qkv_bias": bias, "rel_err": rel,
+                                   "tol": tol, "equal": True})
+    for length in (64, 25):
+        for batch, dtype, bias in ((256, torch.float32, False), (256, torch.float32, True),
+                                   (3, torch.float32, True), (256, torch.bfloat16, False)):
+            x, wqkv, bqkv, wproj, _ = _attention_operands(rng, batch, length, dtype, bias)
+            dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)
+                                  ).to(DEV).to(dtype)
+            got = fa.fused_attention_backward(x, dy, wqkv, bqkv, wproj, heads)
+            torch.cuda.synchronize()
+            want = fa.attention_backward_plain(x, dy, wqkv, bqkv, wproj, heads)
+            rels = {}
+            for name, g, w in zip(("dx", "dwqkv", "dbqkv", "dwproj", "dbproj"), got, want):
+                check((g is None) == (w is None), f"{name}: one side is None")
+                if g is None:
+                    continue
+                check(g.dtype == dtype, f"{name} is {g.dtype}")
+                err, rels[name] = _rel_err(g, w)
+                tol = (TOL_BF16 if dtype == torch.bfloat16
+                       else TOL_FP32 if name == "dx" else TOL_FP32_WGRAD)
+                check(rels[name] <= tol, f"attention backward {name} off at L{length} "
+                      f"B{batch} {dtype} bias={bias}: {rels[name]} > {tol}")
+                if dtype == torch.float32 and name == "dx":
+                    worst_b = max(worst_b, err)
+            checks.append({"kernel": "attention_bwd", "shape": [batch, length, dim],
+                           "dtype": str(dtype)[6:], "qkv_bias": bias, "rel_err": rels,
+                           "tol": {"dx": TOL_FP32, "weights": TOL_FP32_WGRAD,
+                                   "bf16": TOL_BF16}, "equal": True})
+
+    def times(length, dtype=torch.float32):
+        batch = 256
+        x, wqkv, bqkv, wproj, bproj = _attention_operands(rng, batch, length, dtype, False)
+        dy = torch.randn_like(x)
+        elt = x.element_size()
+        wbytes = (wqkv.numel() + wproj.numel() + bproj.numel()) * elt
+        fwd_bound, fwd_by = bound(2 * x.numel() * elt + wbytes,
+                                  _attention_flops(batch, length, dim, False))
+        bwd_bound, bwd_by = bound(3 * x.numel() * elt + 2 * wbytes,
+                                  _attention_flops(batch, length, dim, True))
+        lib_in = [t.detach().clone().requires_grad_(True) for t in (x, wqkv, wproj, bproj)]
+        lib_y = _library_attention(lib_in[0], lib_in[1], None, lib_in[2], lib_in[3], heads)
+        with torch.no_grad():
+            fwd = {"ms": cuda_ms(lambda: fa.fused_attention(x, wqkv, bqkv, wproj, bproj, heads)),
+                   "plain_ms": cuda_ms(lambda: fa.reference_attention(
+                       x, wqkv, bqkv, wproj, bproj, heads)),
+                   "library_ms": cuda_ms(lambda: _library_attention(
+                       x, wqkv, bqkv, wproj, bproj, heads)),
+                   "bound_ms": fwd_bound, "bound_by": fwd_by}
+        bwd = {"ms": cuda_ms(lambda: fa.fused_attention_backward(
+                   x, dy, wqkv, bqkv, wproj, heads)),
+               "plain_ms": cuda_ms(lambda: fa.attention_backward_plain(
+                   x, dy, wqkv, bqkv, wproj, heads)),
+               "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                   lib_y, lib_in, dy, retain_graph=True)),
+               "bound_ms": bwd_bound, "bound_by": bwd_by}
+        return fwd, bwd
+
+    fwd64, bwd64 = times(64)
+    timed_f = {"name": "attention_fwd", "route": "cuda",
+               "source": "gm3d_tpu_torch/csrc/fused_attention.cu",
+               "replaces": "gm3d_tpu/ops/fused_attention.py:38", "shape": [256, 64, dim],
+               "max_abs_err": worst_f, **fwd64}
+    timed_b = {"name": "attention_bwd", "route": "cuda",
+               "source": "gm3d_tpu_torch/csrc/fused_attention.cu",
+               "replaces": "gm3d_tpu/ops/fused_attention.py:109", "shape": [256, 64, dim],
+               "max_abs_err": worst_b, **bwd64}
+    others = []
+    for length, dtype in ((39, torch.float32), (25, torch.float32), (64, torch.bfloat16)):
+        fwd, bwd = times(length, dtype)
+        others.append({"name": "attention_fwd", "shape": [256, length, dim],
+                       "dtype": str(dtype)[6:], **fwd})
+        others.append({"name": "attention_bwd", "shape": [256, length, dim],
+                       "dtype": str(dtype)[6:], **bwd})
+    return checks, timed_f, timed_b, others
 
 
 def phase_kernels() -> list[dict]:
@@ -228,7 +442,14 @@ def phase_kernels() -> list[dict]:
          "bound_ms": bound(32 * 2048 * 12 + 32 * 512 * 12 + 32 * 512 * 16 * 8,
                            9.0 * 32 * 512 * 2048 + 5.0 * 32 * 2048)[0]},
     ]
-    emit({"phase": "kernels", "checks": checks, "kernels": timed, "other_shapes": others})
+    pe_checks, pe_timed = _patch_embed_checks(rng)
+    at_checks, at_fwd, at_bwd, at_others = _attention_checks(rng)
+    checks += pe_checks + at_checks
+    timed += [pe_timed, at_fwd, at_bwd]
+    others += at_others
+    emit({"phase": "kernels", "checks": checks, "kernels": timed, "other_shapes": others,
+          "tolerances": {"fp32": TOL_FP32, "fp32_weight_grads": TOL_FP32_WGRAD,
+                         "bf16": TOL_BF16, "fps_knn": "indices equal"}})
     return timed
 
 
@@ -376,13 +597,111 @@ def phase_throughput(tmp: str, art32: str) -> None:
     emit(out)
 
 
-PHASES = ("env", "build", "kernels", "serve", "throughput")
+# the train step's shapes: the JAX CLI's default batch at full width, fp32
+TRAIN_BATCH, TRAIN_STEPS, NUM_MASK = 256, 6, 39
+# launches of each kernel in ONE step: one grouping; two grad-free patch
+# embeds; attention forward 24 (EMA) + 28 (student) + 20 (teacher); attention
+# backward 28 (student)
+LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 2, "attention_fwd": 72,
+                     "attention_bwd": 28}
+# step-1 metrics, kernels against the unfused modules on the card: fp32 sums in
+# other orders through 28 blocks, and a mask that may differ in a group or two
+# where two predicted losses tie to the last bits
+TOL_STEP = 2e-3
+
+
+def _train_clouds(gen: torch.Generator) -> torch.Tensor:
+    return torch.randn((TRAIN_BATCH, NPOINTS, 3), generator=gen, device=DEV) * 0.5
+
+
+def phase_train(env: dict) -> dict:
+    """A trainer that takes a few full-width steps through the kernels."""
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer)
+    check(step.num_mask == NUM_MASK, step.num_mask)
+    start = {k: v.detach().clone() for k, v in state.student.state_dict().items()}
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    history, masks, event_ms, wall_ms = [], [], [], []
+    pp.reset_launches()  # the main path: every launch count starts from 0 here
+    for _ in range(TRAIN_STEPS):
+        pts = _train_clouds(gen)
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        begin.record()
+        state, metrics = step(state, pts, gen, pp.SCALARS)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(begin.elapsed_time(end))
+        history.append({k: float(metrics[k]) for k in METRIC_KEYS})
+        masks.append(step.last_mask.clone())
+    launches = pp.read_launches()
+
+    check(state.step == TRAIN_STEPS, state.step)
+    for i, metrics in enumerate(history):
+        check(sorted(metrics) == sorted(METRIC_KEYS) and all(np.isfinite(v) for v in
+                                                              metrics.values()), (i, metrics))
+    for mask in masks:
+        check(mask.shape == (TRAIN_BATCH, NUM_GROUP) and mask.dtype == torch.bool, mask.shape)
+        check(bool((mask.sum(dim=1) == NUM_MASK).all()), "a row is not masked in 39 groups")
+    want_launches = {k: v * TRAIN_STEPS for k, v in LAUNCHES_PER_STEP.items()}
+    check(launches == want_launches, f"launches {launches}, expected {want_launches}")
+
+    now = state.student.state_dict()
+    ema = state.ema.state_dict()
+    moved = {k: float((now[k] - start[k]).abs().max()) for k in start
+             if start[k].dtype.is_floating_point}
+    ema_moved = {k: float((ema[k] - start[k]).abs().max()) for k in moved}
+    head = [k for k in moved if k.startswith(GM3D_COORD_HEAD)]
+    check(len(head) == 2 and all(moved[k] == 0.0 and ema_moved[k] == 0.0 for k in head),
+          "the coordinate head moved")
+    rest = [k for k in moved if k not in head]
+    check(all(moved[k] > 0.0 for k in rest), [k for k in rest if moved[k] == 0.0])
+    check(all(ema_moved[k] > 0.0 for k in rest), [k for k in rest if ema_moved[k] == 0.0])
+    check(all(bool(torch.isfinite(v).all()) for v in now.values()), "non-finite parameter")
+
+    # the same first step through the unfused modules (PatchEncoder.eval(),
+    # plain Attention), same weights, same clouds, same draws
+    plain_state, plain_teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    plain_step = make_gm3d_train_step(plain_state.student, plain_teacher,
+                                      plain_state.optimizer, use_fused_embed=False,
+                                      use_fused_attention=False)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    plain_state, plain_metrics = plain_step(plain_state, _train_clouds(gen), gen, pp.SCALARS)
+    plain_metrics = {k: float(plain_metrics[k]) for k in METRIC_KEYS}
+    rel = {k: abs(history[0][k] - plain_metrics[k]) / max(abs(plain_metrics[k]), 1e-12)
+           for k in METRIC_KEYS}
+    check(all(v <= TOL_STEP for v in rel.values()),
+          f"step 1 through the kernels {history[0]} differs from the unfused modules "
+          f"{plain_metrics} by more than {TOL_STEP}: {rel}")
+    mask_agreement = float((masks[0] == plain_step.last_mask).float().mean())
+    check(mask_agreement >= 0.995, f"masks agree on {mask_agreement}")
+
+    # steady state: the first step also builds nothing new, but warms caches
+    step_ms = statistics.median(event_ms[1:])
+    step_wall = statistics.median(wall_ms[1:])
+    res = {"phase": "train", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "npoints": NPOINTS,
+           "launches": launches, "launches_per_step": LAUNCHES_PER_STEP,
+           "masked_groups_per_row": NUM_MASK, "metrics_step_1": history[0],
+           "metrics_step_1_unfused": plain_metrics, "rel_diff_step_1": rel, "tol": TOL_STEP,
+           "mask_agreement_step_1": mask_agreement, "metrics_last_step": history[-1],
+           "largest_parameter_move": max(moved.values()),
+           "largest_ema_move": max(ema_moved.values())}
+    emit(res)
+    emit({"train_step": {"clouds_per_s": TRAIN_BATCH / step_wall * 1e3,
+                         "ms_per_step_cuda_events": step_ms, "ms_per_step_wall": step_wall,
+                         "batch": TRAIN_BATCH, "dtype": "float32", "gpu": env["gpu"]}})
+    return {"launches": launches}
+
+
+PHASES = ("env", "build", "kernels", "serve", "throughput", "train")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma list, a prefix of: " + ",".join(PHASES))
+                    help="comma list out of: " + ",".join(PHASES))
     phases = ap.parse_args().phases.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -398,10 +717,17 @@ def main() -> None:
             served = phase_serve(tmp)
         if "throughput" in phases:
             phase_throughput(tmp, served["artifact"])
+    trained = phase_train(env) if "train" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
-        kern["launches"] = served["launches"][kern["name"]]
+        # FPS and KNN are on both paths: `launches` is the serving run's count
+        if kern["name"] in served["launches"]:
+            kern["launches"] = served["launches"][kern["name"]]
+            kern["launches_train"] = trained["launches"][kern["name"]]
+        else:
+            kern["launches"] = trained["launches"][kern["name"]]
+        check(kern["launches"] > 0, f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})
     print(env["gpu"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,6 +5,8 @@ from gm3d_tpu_torch.ckpt.torch_import import (
     GM3D_STUDENT_MAP,
     POINT_MAE_MAP,
     POINT_TRANSFORMER_MAP,
+    load_flax_variables,
+    load_pretrain_models,
     load_torch_file,
     state_dict_from_flax,
 )
@@ -15,4 +17,6 @@ __all__ = [
     "GM3D_STUDENT_MAP",
     "state_dict_from_flax",
     "load_torch_file",
+    "load_flax_variables",
+    "load_pretrain_models",
 ]

@@ -157,6 +157,38 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     return sd
 
 
+def load_flax_variables(module: torch.nn.Module, variables: Mapping[str, Any],
+                        table: Mapping[str, Tuple[str, str]]) -> torch.nn.Module:
+    """Load flax ``variables`` (numpy) into ``module`` with ``strict=True``;
+    ``num_batches_tracked``, which flax does not have, keeps its value."""
+    sd = state_dict_from_flax(variables, table)
+    for key, value in module.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            sd.setdefault(key, value)
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def load_pretrain_models(student: torch.nn.Module, ema: Optional[torch.nn.Module],
+                         teacher: Optional[torch.nn.Module],
+                         student_variables: Mapping[str, Any],
+                         ema_variables: Optional[Mapping[str, Any]] = None,
+                         teacher_variables: Optional[Mapping[str, Any]] = None) -> None:
+    """Carry a JAX GM3D pretrain state across: the ``TrainState``'s student
+    variables (``state.variables()``), its EMA variables
+    (``state.ema_variables()``) and the Point-MAE teacher's variables, each a
+    nested dict of numpy arrays, into the port's student, EMA copy and
+    teacher. Every load is strict: a missing or unexpected tensor raises."""
+    load_flax_variables(student, student_variables, GM3D_STUDENT_MAP)
+    if ema is not None:
+        load_flax_variables(ema, ema_variables if ema_variables is not None
+                            else student_variables, GM3D_STUDENT_MAP)
+    if teacher is not None:
+        if teacher_variables is None:
+            raise ValueError("a teacher module was given without teacher variables")
+        load_flax_variables(teacher, teacher_variables, POINT_MAE_MAP)
+
+
 def strip_prefixes(key: str) -> str:
     """Strip the ``module.`` (DDP) and ``base_model.`` prefixes of a key."""
     for prefix in ("module.", "base_model."):

@@ -22,14 +22,39 @@ Behaviours preserved:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gm3d_tpu_torch.ops.fused_attention import fused_attention_trainable
+
 # reference init: trunc_normal(std=0.02) for Linear/Conv weights, zero bias
 INIT_STD = 0.02
+
+# Call-time switch (the train step's fast path): inside
+# ``fused_attention_scope`` mask-free attention goes through
+# ``ops.fused_attention`` (the CUDA kernels for a CUDA tensor, the plain
+# version for a CPU tensor). Outside it, as on the serving path, ``Attention``
+# is plain tensor code.
+# A context variable: a train step in one thread does not switch the route
+# of a server answering in another.
+_FUSED_ATTENTION: contextvars.ContextVar = contextvars.ContextVar(
+    "gm3d_fused_attention", default=False)
+
+
+@contextlib.contextmanager
+def fused_attention_scope(enabled: bool = True):
+    """Route mask-free attention through the fused attention op (with its
+    backward kernel) inside this scope."""
+    token = _FUSED_ATTENTION.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _FUSED_ATTENTION.reset(token)
 
 
 def trunc_normal_(tensor: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -142,8 +167,10 @@ class Attention(nn.Module):
     """Multi-head self-attention; qkv has no bias by default.
 
     Plain tensor code (matmul, softmax), as the JAX serving path leaves it to
-    its compiler. ``attn_mask``: (B, N, N) bool, True where attention is
-    allowed; masked scores become -1e9."""
+    its compiler; inside ``fused_attention_scope`` the whole sublayer is one
+    call of ``ops.fused_attention`` when there is no mask and dropout is
+    inert. ``attn_mask``: (B, N, N) bool, True where attention is allowed;
+    masked scores become -1e9."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  qkv_bias: bool = False, attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -158,6 +185,17 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
         batch, seq, _ = x.shape
+        # the fused op applies no dropout: take it only when dropout is inert
+        dropout_inert = not self.training or (
+            self.attn_drop.p == 0.0 and self.proj_drop.p == 0.0)
+        if _FUSED_ATTENTION.get() and attn_mask is None and dropout_inert:
+            # weights rounded to the compute dtype first, as Dense rounds
+            # them; (out, in) storage goes over as a transposed view
+            dt = self.compute_dtype
+            bqkv = None if self.qkv.bias is None else self.qkv.bias.to(dt)
+            return fused_attention_trainable(
+                x.to(dt), self.qkv.weight.to(dt).t(), bqkv,
+                self.proj.weight.to(dt).t(), self.proj.bias.to(dt), self.num_heads)
         head_dim = self.dim // self.num_heads
         scale = head_dim ** -0.5
         qkv = self.qkv(x).reshape(batch, seq, 3, self.num_heads, head_dim)

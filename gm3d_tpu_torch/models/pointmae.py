@@ -1,10 +1,13 @@
 """Point-MAE: masked-autoencoder pretraining backbone.
 
-Port of ``gm3d_tpu/models/pointmae.py``, as far as the frozen featurizer of
-the serving path needs it: ``PointMAE`` declares every sub-module (so that a
-whole checkpoint loads with ``strict=True``) but implements ``group`` and
-``encode_features`` only. The masked reconstruction forward and the
-distillation replay arrive with the pretrain slice.
+Port of ``gm3d_tpu/models/pointmae.py``: the legacy masked-reconstruction
+model and, with an all-False mask, the frozen complete-to-partial distillation
+teacher of the GM3D pretrain step (``encode_features`` + ``decode_replay``).
+
+Mask GENERATION lives outside the model (``gm3d_tpu_torch.masking``): the
+model receives a boolean mask plus the masked count. Train / eval mode is the
+module's own (``.train()`` / ``.eval()``), where the JAX modules take
+``deterministic``; ``generator`` feeds stochastic depth.
 """
 
 from __future__ import annotations
@@ -66,8 +69,11 @@ class MaskTransformer(nn.Module):
 
     def forward(self, neighborhood: torch.Tensor, center: torch.Tensor,
                 mask: Optional[torch.Tensor], num_mask: int,
-                tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``tokens`` (B, G, C) optionally bypasses the patch embed."""
+                tokens: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``tokens`` (B, G, C) optionally bypasses the patch embed: the train
+        step feeds the fused patch embed's output here for the grad-free EMA
+        and teacher passes (``ops/patch_embed.py``)."""
         if tokens is None:
             tokens = self.encoder(neighborhood)  # (B, G, C)
         if num_mask:
@@ -75,12 +81,13 @@ class MaskTransformer(nn.Module):
             tokens = take_groups(tokens, vis_idx)
             center = take_groups(center, vis_idx)
         pos = self.pos_embed(center)
-        return getattr(self, self.norm_name)(self.blocks(tokens, pos))
+        return getattr(self, self.norm_name)(self.blocks(tokens, pos, None, generator))
 
 
 class PointMAE(nn.Module):
-    """Point-MAE pretrain model (registry name ``Point_MAE``): here the frozen
-    featurizer; see the module docstring for what waits."""
+    """Point-MAE pretrain model (registry name ``Point_MAE``): the legacy
+    pretrain path and, with ``mask`` all-False, the frozen distillation
+    teacher."""
 
     def __init__(self, trans_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  decoder_depth: int = 4, decoder_num_heads: int = 6,
@@ -113,12 +120,45 @@ class PointMAE(nn.Module):
             grouped = self.group(pts)
         return self.MAE_encoder(grouped.neighborhood, grouped.center, None, 0, tokens=tokens)
 
-    def forward(self, pts, mask, num_mask: int):
-        raise NotImplementedError(
-            "PointMAE.forward (masked reconstruction) is ported with the "
-            "pretrain slice; this slice has group() and encode_features()")
+    def encode(self, pts: torch.Tensor, mask: torch.Tensor, num_mask: int,
+               generator: Optional[torch.Generator] = None):
+        grouped = self.group(pts)
+        x_vis = self.MAE_encoder(grouped.neighborhood, grouped.center, mask, num_mask,
+                                 generator=generator)
+        return x_vis, grouped
 
-    def decode_replay(self, tokens, centers_sel):
-        raise NotImplementedError(
-            "PointMAE.decode_replay (distillation replay) is ported with the "
-            "pretrain slice; this slice has group() and encode_features()")
+    def forward(self, pts: torch.Tensor, mask: torch.Tensor, num_mask: int,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """Masked reconstruction forward. Returns the rebuilt and the
+        ground-truth masked patches; the Chamfer loss is the train step's."""
+        x_vis, grouped = self.encode(pts, mask, num_mask, generator)
+        batch = pts.shape[0]
+        vis_idx, mask_idx = mask_split_indices(mask, num_mask)
+        pos_vis = self.decoder_pos_embed(take_groups(grouped.center, vis_idx))
+        if num_mask:
+            pos_mask = self.decoder_pos_embed(take_groups(grouped.center, mask_idx))
+            mask_tokens = self.mask_token.to(x_vis.dtype).expand(batch, num_mask, -1)
+            x_full = torch.cat([x_vis, mask_tokens], dim=1)
+            pos_full = torch.cat([pos_vis, pos_mask], dim=1)
+            x_rec = self.MAE_decoder(x_full, pos_full, return_tokens=num_mask,
+                                     generator=generator)
+            rebuild = self.increase_dim(x_rec).reshape(batch, num_mask, self.group_size, 3)
+            gt = take_groups(grouped.neighborhood, mask_idx)
+        else:
+            # mask_ratio 0 (the teacher): decode and rebuild ALL groups
+            x_rec = self.MAE_decoder(x_vis, pos_vis, return_tokens=0, generator=generator)
+            rebuild = self.increase_dim(x_rec).reshape(
+                batch, self.num_group, self.group_size, 3)
+            gt = grouped.neighborhood
+        return {"rebuild": rebuild, "gt": gt, "center": grouped.center,
+                "mask_idx": mask_idx, "vis_idx": vis_idx, "x_vis": x_vis}
+
+    def decode_replay(self, tokens: torch.Tensor, centers_sel: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Run the decoder + head on an arbitrary token sequence positioned
+        at ``centers_sel`` (the complete-to-partial distillation replay).
+        Returns per-token rebuilt patches (B, T, S, 3)."""
+        pos = self.decoder_pos_embed(centers_sel)
+        x_rec = self.MAE_decoder(tokens, pos, return_tokens=0, generator=generator)
+        batch, seq = x_rec.shape[0], x_rec.shape[1]
+        return self.increase_dim(x_rec).reshape(batch, seq, self.group_size, 3)

@@ -118,11 +118,18 @@ def build_library(verbose: bool = False) -> Path:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.gm3d_fps.argtypes = [p, p, i, i, i, i, p]
     lib.gm3d_fps.restype = i
     lib.gm3d_knn.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.gm3d_knn.restype = i
+    lib.gm3d_patch_embed.argtypes = [p] * 14 + [i, i, i, i, p]
+    lib.gm3d_patch_embed.restype = i
+    lib.gm3d_attn_fwd.argtypes = [p, p, l, l, p, p, l, l, p, p, p, i, i, i, i, i, p]
+    lib.gm3d_attn_fwd.restype = i
+    lib.gm3d_attn_bwd.argtypes = [p, p, p, l, l, p, p, l, l, p, p, p, l, l, p, p, l, l, p,
+                                  i, i, i, i, i, p]
+    lib.gm3d_attn_bwd.restype = i
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

@@ -44,15 +44,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(_IMPORT_ALL, PATH="", CUDA_HOME="", CUDA_PATH="")
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
-    assert int(lines["IMPORTED"]) >= 25
+    assert int(lines["IMPORTED"]) >= 40
     assert lines["FOREIGN"] == "[]"
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"import jax|from jax|import flax|from flax|import orbax|"
-                         r"gm3d_tpu(\.| import)")
+                         r"from orbax|import optax|from optax|gm3d_tpu(\.| import)")
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 25
+    assert len(files) > 40
     hits = []
     for path in files:
         for no, line in enumerate(path.read_text().splitlines(), 1):
@@ -63,12 +63,19 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    for name in ("fps.cu", "knn.cu"):
+    names = ["fps.cu", "fused_attention.cu", "knn.cu", "patch_embed.cu"]
+    for name in names:
         text = (PKG / "csrc" / name).read_text()
         assert 'extern "C"' in text and "torch/extension.h" not in text
+        # a kernel is written here, not called: no library behind the C interface
+        assert not re.search(r"cublas|cudnn|cutlass/gemm/device", text, re.I), name
+    assert "fmaf" in (PKG / "csrc" / "tile_gemm.cuh").read_text()
+    for entry in ("gm3d_attn_fwd", "gm3d_attn_bwd"):
+        assert entry in (PKG / "csrc" / "fused_attention.cu").read_text()
+    assert "gm3d_patch_embed" in (PKG / "csrc" / "patch_embed.cu").read_text()
     from gm3d_tpu_torch.ops import _build
 
-    assert [p.name for p in _build.sources()] == ["fps.cu", "knn.cu"]
+    assert [p.name for p in _build.sources()] == names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library_path().parent == PKG / "build"
     assert _build.library_path() == _build.library_path()  # a pure content hash
@@ -118,6 +125,74 @@ def test_entry_points_default_to_cuda_and_say_so(artifact, tmp_path):
                   lambda: make_server(art), lambda: serve_cli.main(["--artifact", art])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
+
+
+def test_train_entry_points_default_to_cuda_and_say_so():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.models import GM3DStudent
+    from gm3d_tpu_torch.scripts import profile_pretrain
+    from gm3d_tpu_torch.train.optim import build_gm3d_shared_optimizer
+    from gm3d_tpu_torch.train.pretrain import make_gm3d_train_step
+
+    tiny = dict(trans_dim=16, depth=1, num_heads=2, group_size=4, num_group=4,
+                encoder_dims=16, decoder_depth=1, decoder_num_heads=2)
+    student = GM3DStudent(**tiny)
+    optimizer = build_gm3d_shared_optimizer(student, 1e-3)
+    for entry in (lambda: make_gm3d_train_step(student, None, optimizer),
+                  lambda: profile_pretrain.build_pretrain_setup(**tiny),
+                  lambda: profile_pretrain.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    # asked for, the CPU is taken
+    make_gm3d_train_step(student, None, optimizer, device="cpu")
+    state, teacher = profile_pretrain.build_pretrain_setup(device="cpu", **tiny)
+    assert next(state.student.parameters()).device.type == "cpu" and not teacher.training
+    with pytest.raises(SystemExit, match="GPU"):
+        profile_pretrain.main(["--device", "cpu"])
+
+
+@pytest.mark.parametrize("wrapper", ["patch_embed", "attention_fwd", "attention_bwd"])
+def test_a_cuda_tensor_goes_to_the_kernel_or_raises(wrapper, monkeypatch):
+    """On a CUDA tensor a wrapper must reach for the kernel library (here:
+    fail to, there is no nvcc) and never take the plain version; a CPU tensor
+    takes the plain version and counts no launch."""
+    from gm3d_tpu_torch.ops import _build, fused_attention as fa, patch_embed as pe
+
+    fn = {"patch_embed": pe.fused_patch_embed, "attention_fwd": fa.fused_attention,
+          "attention_bwd": fa.fused_attention_backward}[wrapper]
+    before = fn.launches
+    x = torch.randn(2, 4, 16)
+    w = (torch.randn(16, 48), None, torch.randn(16, 16))
+    if wrapper == "patch_embed":
+        from gm3d_tpu_torch.models.blocks import PatchEncoder
+
+        fn(torch.randn(1, 2, 4, 3), pe.params_from_module(PatchEncoder(16).eval()))
+    elif wrapper == "attention_fwd":
+        fn(x, *w, torch.zeros(16), heads=2)
+    else:
+        fn(x, torch.ones_like(x), *w, heads=2)
+    assert fn.launches == before
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the kernel route is checked by chip_smoke.py")
+
+    class Reached(Exception):
+        pass
+
+    def no_library(*a, **k):
+        raise Reached
+
+    # stand-ins that claim to be CUDA tensors: the wrapper must go for the library
+    monkeypatch.setattr(_build, "load_library", no_library)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    with pytest.raises(Reached):
+        if wrapper == "patch_embed":
+            fn(torch.randn(1, 2, 4, 3), pe.params_from_module(PatchEncoder(16).eval()))
+        elif wrapper == "attention_fwd":
+            fn(x, *w, torch.zeros(16), heads=2)
+        else:
+            fn(x, torch.ones_like(x), *w, heads=2)
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
