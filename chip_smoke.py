@@ -10,7 +10,8 @@ Phases, each printing one JSON line when it ends:
   env         card name and power limit, torch / CUDA / nvcc versions
   build       compiles ``gm3d_tpu_torch/csrc/*.cu`` and loads the library
   kernels     every kernel against its plain PyTorch version on the card
-              (indices must be EQUAL), then times at the serving shapes
+              (indices must be EQUAL), the attention kernels' tensor-core tile
+              product against float64, then times at the main paths' shapes
   serve       exports the full-width PointTransformer classifier (random
               weights from a seed) through the export CLI, serves it over
               HTTP with dynamic batching, checks the answers against the
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import os
 import statistics
@@ -56,6 +58,7 @@ from gm3d_tpu_torch.ops import _build  # noqa: E402
 from gm3d_tpu_torch.models.blocks import PatchEncoder  # noqa: E402
 from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from gm3d_tpu_torch.ops import patch_embed as pe  # noqa: E402
+from gm3d_tpu_torch.ops import tile_mma as tm  # noqa: E402
 from gm3d_tpu_torch.ops.fps import fps_gather, fps_indices, fps_indices_torch  # noqa: E402
 from gm3d_tpu_torch.ops.knn import knn_indices, knn_indices_torch  # noqa: E402
 from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
@@ -68,10 +71,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
 DEV = torch.device("cuda", 0)
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# the fp32 rate outside the tensor cores (all five kernels are fp32 vector code).
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, the
+# fp32 rate outside the tensor cores (`bound_ms` of every kernel: FPS, KNN and
+# the patch embed are fp32 vector code, and the attention kernels keep that
+# yardstick) and the dense TF32 rate inside them (`tensor_bound_ms` of the
+# attention kernels, whose products are three TF32 passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+TF32_PASSES = 3
 
 # the serving shapes: one exported batch of the classifier
 SERVE_BATCH, NPOINTS, NUM_GROUP, GROUP_SIZE = 128, 1024, 64, 32
@@ -109,6 +117,11 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_bound(bytes_moved: float, flops: float) -> float:
+    """The same for products issued as three TF32 passes on the tensor cores."""
+    return max(bytes_moved / HBM_BYTES_PER_S, TF32_PASSES * flops / TF32_FLOPS) * 1e3
 
 
 # --------------------------------------------------------------------------
@@ -180,6 +193,67 @@ def _random_patch_encoder(seed: int, out_dim: int = 384) -> PatchEncoder:
 # both sides round an fp32 result to bf16 (8 bits of mantissa), so they may
 # differ by one rounding step.
 TOL_FP32, TOL_FP32_WGRAD, TOL_BF16 = 2e-5, 2e-4, 1.6e-2
+# One tile product on the tensor cores against the float64 product of the same
+# operands. As for the kernels, the largest absolute difference over the
+# largest |float64 value|: the split drops terms of order 2^-22 and the sum is
+# fp32 (the CPU emulation reads 4e-7 at K 384; one TF32 pass reads about 3e-4).
+# A single output (M = N = 1) may be a sum that cancels, so every case is also
+# held to a few fp32 roundoffs (2^-24 each) of its sum |a| |b|; one TF32 pass
+# misses that by two orders too.
+TOL_TILE_MMA = 2e-6
+TOL_TILE_MMA_SUM = 2.0 ** -21
+
+
+def _tile_mma_checks(rng) -> list[dict]:
+    """The attention kernels' tile product, one block at a time, in every
+    operand form they use: ragged M, N, K, each operand plain and transposed,
+    fp32 and bf16, each from device memory (through a staged panel) and from
+    a shared-memory buffer (read in place)."""
+    def t(rows, cols, scale, dtype, transposed):
+        shape = (cols, rows) if transposed else (rows, cols)
+        v = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)
+                             ).to(DEV).to(dtype)
+        return v.t() if transposed else v
+
+    checks = []
+    before = tm.tile_product.launches
+    either = (False, True)
+    for dtype, shared_a, shared_b, a_t, b_t in itertools.product(
+            (torch.float32, torch.bfloat16), either, either, either, either):
+        worst, worst_of_sum, cases = 0.0, 0.0, 0
+        for k, m, n in itertools.product((384, 64, 39, 25), (64, 39, 25, 1), (64, 39, 25, 1)):
+            if (shared_a or shared_b) and k > tm.TILE:
+                continue
+            a, b = t(m, k, 1.0, dtype, a_t), t(k, n, 0.05, dtype, b_t)
+            got = tm.tile_product(a, b, shared_a, shared_b)
+            want = a.double() @ b.double()
+            err, rel = _rel_err(got, want)
+            size = float((a.double().abs() @ b.double().abs()).max())
+            check(err <= TOL_TILE_MMA_SUM * size and (rel <= TOL_TILE_MMA or m * n == 1),
+                  f"tile_mma off at M{m} N{n} K{k} {dtype} shared=({shared_a}, {shared_b}) "
+                  f"A^T={a_t} B^T={b_t}: {rel} > {TOL_TILE_MMA} or "
+                  f"{err / size} > {TOL_TILE_MMA_SUM}")
+            worst = max(worst, rel if m * n > 1 else 0.0)
+            worst_of_sum, cases = max(worst_of_sum, err / size), cases + 1
+        checks.append({"kernel": "tile_mma", "dtype": str(dtype)[6:],
+                       "a": ("shared" if shared_a else "device") + (", transposed" * a_t),
+                       "b": ("shared" if shared_b else "device") + (", transposed" * b_t),
+                       "cases": cases, "rel_err": worst, "tol": TOL_TILE_MMA,
+                       "err_over_sum_abs": worst_of_sum, "tol_over_sum_abs": TOL_TILE_MMA_SUM,
+                       "equal": True})
+    torch.cuda.synchronize()
+    check(tm.tile_product.launches - before == sum(c["cases"] for c in checks), "launch count")
+    # not asserted, for the record: the same product summed through one chain of
+    # mma accumulators (the kernels sum each 32-deep tile from zero), one TF32
+    # pass, and PyTorch's fp32 product
+    a, b = t(64, 384, 1.0, torch.float32, False), t(384, 64, 0.05, torch.float32, True)
+    want = a.double() @ b.double()
+    checks.append({"kernel": "tile_mma", "case": "K 384, other ways to sum (not asserted)",
+                   "rel_err": _rel_err(tm.tile_product(a, b), want)[1],
+                   "rel_err_one_chain": _rel_err(tm.tile_product(a, b, chain=True), want)[1],
+                   "rel_err_one_tf32_pass": _rel_err(tm.matmul_tf32_plain(a, b), want)[1],
+                   "rel_err_torch_fp32": _rel_err(a @ b, want)[1], "equal": True})
+    return checks
 
 
 def _patch_embed_checks(rng) -> tuple[list[dict], dict]:
@@ -305,10 +379,11 @@ def _attention_checks(rng) -> tuple[list[dict], dict, dict, list[dict]]:
         dy = torch.randn_like(x)
         elt = x.element_size()
         wbytes = (wqkv.numel() + wproj.numel() + bproj.numel()) * elt
-        fwd_bound, fwd_by = bound(2 * x.numel() * elt + wbytes,
-                                  _attention_flops(batch, length, dim, False))
-        bwd_bound, bwd_by = bound(3 * x.numel() * elt + 2 * wbytes,
-                                  _attention_flops(batch, length, dim, True))
+        fwd_work = (2 * x.numel() * elt + wbytes, _attention_flops(batch, length, dim, False))
+        bwd_work = (3 * x.numel() * elt + 2 * wbytes,
+                    _attention_flops(batch, length, dim, True))
+        fwd_bound, fwd_by = bound(*fwd_work)
+        bwd_bound, bwd_by = bound(*bwd_work)
         lib_in = [t.detach().clone().requires_grad_(True) for t in (x, wqkv, wproj, bproj)]
         lib_y = _library_attention(lib_in[0], lib_in[1], None, lib_in[2], lib_in[3], heads)
         with torch.no_grad():
@@ -317,14 +392,16 @@ def _attention_checks(rng) -> tuple[list[dict], dict, dict, list[dict]]:
                        x, wqkv, bqkv, wproj, bproj, heads)),
                    "library_ms": cuda_ms(lambda: _library_attention(
                        x, wqkv, bqkv, wproj, bproj, heads)),
-                   "bound_ms": fwd_bound, "bound_by": fwd_by}
+                   "bound_ms": fwd_bound, "bound_by": fwd_by,
+                   "tensor_bound_ms": tensor_bound(*fwd_work)}
         bwd = {"ms": cuda_ms(lambda: fa.fused_attention_backward(
                    x, dy, wqkv, bqkv, wproj, heads)),
                "plain_ms": cuda_ms(lambda: fa.attention_backward_plain(
                    x, dy, wqkv, bqkv, wproj, heads)),
                "library_ms": cuda_ms(lambda: torch.autograd.grad(
                    lib_y, lib_in, dy, retain_graph=True)),
-               "bound_ms": bwd_bound, "bound_by": bwd_by}
+               "bound_ms": bwd_bound, "bound_by": bwd_by,
+               "tensor_bound_ms": tensor_bound(*bwd_work)}
         return fwd, bwd
 
     fwd64, bwd64 = times(64)
@@ -442,14 +519,16 @@ def phase_kernels() -> list[dict]:
          "bound_ms": bound(32 * 2048 * 12 + 32 * 512 * 12 + 32 * 512 * 16 * 8,
                            9.0 * 32 * 512 * 2048 + 5.0 * 32 * 2048)[0]},
     ]
+    mma_checks = _tile_mma_checks(np.random.default_rng(3))
     pe_checks, pe_timed = _patch_embed_checks(rng)
     at_checks, at_fwd, at_bwd, at_others = _attention_checks(rng)
-    checks += pe_checks + at_checks
+    checks += mma_checks + pe_checks + at_checks
     timed += [pe_timed, at_fwd, at_bwd]
     others += at_others
     emit({"phase": "kernels", "checks": checks, "kernels": timed, "other_shapes": others,
           "tolerances": {"fp32": TOL_FP32, "fp32_weight_grads": TOL_FP32_WGRAD,
-                         "bf16": TOL_BF16, "fps_knn": "indices equal"}})
+                         "bf16": TOL_BF16, "tile_mma_vs_float64": TOL_TILE_MMA,
+                         "fps_knn": "indices equal"}})
     return timed
 
 

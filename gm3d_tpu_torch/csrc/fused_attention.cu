@@ -17,23 +17,37 @@
 //
 // Where things live. A cloud's x is 96 KB in fp32 and so is y; q, k, v and
 // the scores of one head are 4 x 16 KB. Shared memory holds the head's
-// buffers only. x (and dy) are re-read from device memory, in practice L2,
-// through tile_gemm's staging, once per head and product; y (and dx) are
-// summed over the heads in an fp32 array in device memory that only the
-// owning block touches (the same thread adds to the same element every
-// time, so no atomics and no fences). Weights stream through the same
+// buffers only, and the products read them where they lie (they are zeroed
+// once and never written outside their valid L x hd or L x L part, so a
+// ragged depth multiplies zeros). x (and dy) are re-read from device memory,
+// in practice L2, through tile_mma's staging, once per head and product; y
+// (and dx) are summed over the heads in an fp32 array in device memory that
+// only the owning block touches (the same thread adds to the same element
+// every time, so no atomics and no fences). Weights stream through the same
 // staging, addressed by strides: the caller hands nn.Linear's (out, in)
-// storage over as a transposed view and nothing is copied.
+// storage over as a transposed view and nothing is copied (any other layout
+// is right too, and slower: it is staged element by element).
 //
 // Weight gradients are sums over clouds, and the blocks run at once: each
 // block adds its share with atomicAdd into zeroed fp32 arrays. The order of
 // that sum changes from run to run, and with it the last bits.
 //
-// What bounds it: operations. 2 L D (4 D + 2 L) flops a cloud forward (82
-// MFLOP at L 64, D 384), about 2.6 times that backward, against 2 x 96 KB of
-// traffic a cloud. All arithmetic is fp32 FFMA; sizes are L <= 64, hd <= 64.
+// Every product goes through tile_mma.cuh: the tensor cores (mma.sync, TF32
+// operands) at fp32 accuracy, each operand split into two TF32 halves and
+// three passes summed in fp32. One pass would keep three digits, and the
+// EMA's predicted losses feed a rank. Softmax, biases and the sums over heads
+// are fp32 vector code. Sizes are L <= 64, hd <= 64.
+//
+// What bounds it. By the count, operations: 2 L D (4 D + 2 L) flops a cloud
+// forward (82 MFLOP at L 64, D 384), about 2.6 times that backward, against
+// 2 x 96 KB of traffic a cloud. On the card, the length of a block's chain: a
+// cloud is 66 small products forward and 312 backward, one after the other
+// behind barriers, with eight warps to hide a wait behind. A block takes as
+// long with its SM to itself as with every SM busy; the forward fits two
+// blocks an SM, the backward one (166 KB of shared memory), so 256 clouds
+// take it two rounds.
 
-#include "tile_gemm.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -58,8 +72,9 @@ __device__ void project(float* dst, const T* x, const Weights<T>& w, int part, i
     const long col0 = (long)part * D + (long)h * hd;
     float acc[4][4];
     zero(acc);
-    tile_gemm(acc, x, (long)D, 1L, L, w.wqkv + col0 * w.q_j, w.q_k, w.q_j, hd, D, stage);
-    for_tile(acc, L, hd, [&](int i, int j, float v) {
+    tile_mma<TK, false, TK, false>(acc, x, (long)D, 1L, L, w.wqkv + col0 * w.q_j, w.q_k, w.q_j,
+                                   hd, D, stage);
+    for_frag(acc, L, hd, [&](int i, int j, float v) {
         if (w.bqkv) v += to_float(w.bqkv[col0 + j]);
         dst[i * LD + j] = v;
     });
@@ -70,8 +85,8 @@ __device__ void scores_softmax(float* s, const float* q, const float* k, int L, 
                                float scale, float* stage) {
     float acc[4][4];
     zero(acc);
-    tile_gemm(acc, q, (long)LD, 1L, L, k, 1L, (long)LD, L, hd, stage);
-    for_tile(acc, L, L, [&](int i, int j, float v) { s[i * LD + j] = v * scale; });
+    tile_mma<TK, true, TK, true>(acc, q, (long)LD, 1L, L, k, 1L, (long)LD, L, hd, stage);
+    for_frag(acc, L, L, [&](int i, int j, float v) { s[i * LD + j] = v * scale; });
     __syncthreads();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int i = warp; i < L; i += THREADS / 32) {
@@ -91,7 +106,7 @@ __device__ void scores_softmax(float* s, const float* q, const float* k, int L, 
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: at most 128 registers
 attn_fwd_kernel(const T* __restrict__ x, Weights<T> w, float* yacc, T* y,
                 int L, int D, int H) {
     extern __shared__ __align__(16) float smem[];
@@ -100,6 +115,7 @@ attn_fwd_kernel(const T* __restrict__ x, Weights<T> w, float* yacc, T* y,
     float* v = smem + 2 * BUF;
     float* s = smem + 3 * BUF;
     float* stage = smem + FWD_BUFS * BUF;
+    for (int e = threadIdx.x; e < FWD_BUFS * BUF; e += THREADS) smem[e] = 0.0f;
     const int hd = D / H;
     const float scale = 1.0f / sqrtf((float)hd);
     const long base = (long)blockIdx.x * L * D;
@@ -113,16 +129,16 @@ attn_fwd_kernel(const T* __restrict__ x, Weights<T> w, float* yacc, T* y,
         // o = a v, into q's buffer (q is spent)
         float acc[4][4];
         zero(acc);
-        tile_gemm(acc, s, (long)LD, 1L, L, v, (long)LD, 1L, hd, L, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { q[i * LD + j] = val; });
+        tile_mma<TK, true, KT, true>(acc, s, (long)LD, 1L, L, v, (long)LD, 1L, hd, L, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { q[i * LD + j] = val; });
         // y += o Wproj[h*hd : (h+1)*hd, :]
         for (int c0 = 0; c0 < D; c0 += TILE) {
             const int n = min(TILE, D - c0);
             zero(acc);
-            tile_gemm(acc, q, (long)LD, 1L, L,
-                      w.wproj + (long)h * hd * w.p_k + (long)c0 * w.p_j, w.p_k, w.p_j, n,
-                      hd, stage);
-            for_tile(acc, L, n, [&](int i, int j, float val) {
+            tile_mma<TK, true, TK, false>(
+                acc, q, (long)LD, 1L, L, w.wproj + (long)h * hd * w.p_k + (long)c0 * w.p_j,
+                w.p_k, w.p_j, n, hd, stage);
+            for_frag(acc, L, n, [&](int i, int j, float val) {
                 const long at = base + (long)i * D + c0 + j;
                 val += (h == 0) ? to_float(w.bproj[c0 + j]) : yacc[at];
                 if (h == H - 1) store(y + at, val);
@@ -133,26 +149,31 @@ attn_fwd_kernel(const T* __restrict__ x, Weights<T> w, float* yacc, T* y,
 }
 
 // dst(i, j) += acc(i, j) over the clouds, for the thread's outputs inside
-// M x N. A thread owns 4 x 4 neighbouring outputs, so along whichever index
-// has unit stride its four values go out as one 16-byte atomic (sm_90 adds a
-// float4 at once), a quarter of the instructions and an eighth of the L2
-// sectors that scalar atomics touch.
+// M x N. A thread owns pairs of neighbouring columns (j even, j + 1), so
+// where j has unit stride a pair goes out as one 8-byte atomic (sm_90 adds a
+// float2 at once): the eight lanes of a row fill two whole 32-byte sectors.
+// The callers orient their products so that j is the unit stride of the
+// gradient of an nn.Linear weight; any other layout takes scalar atomics.
 __device__ __forceinline__ void add_tile(const float (&acc)[4][4], int M, int N, float* dst,
                                          long s_i, long s_j) {
-    const int i0 = 4 * (threadIdx.x >> 4), j0 = 4 * (threadIdx.x & 15);
-    const bool whole = i0 + 3 < M && j0 + 3 < N && (((size_t)dst) & 15) == 0;
-    if (whole && s_i == 1 && s_j % 4 == 0) {
+    if (s_j == 1 && s_i % 2 == 0 && (((size_t)dst) & 7) == 0) {
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        const int i0 = 16 * (warp >> 1) + (lane >> 2), j0 = 32 * (warp & 1) + 2 * (lane & 3);
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-            atomicAdd(reinterpret_cast<float4*>(dst + i0 + (j0 + b) * s_j),
-                      make_float4(acc[0][b], acc[1][b], acc[2][b], acc[3][b]));
-    } else if (whole && s_j == 1 && s_i % 4 == 0) {
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-            atomicAdd(reinterpret_cast<float4*>(dst + (i0 + a) * s_i + j0),
-                      make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
+            for (int r = 0; r < 4; r += 2) {
+                const int i = i0 + 4 * r, j = j0 + 8 * nt;
+                if (i >= M || j >= N) continue;
+                float* at = dst + i * s_i + j;
+                if (j + 1 < N)
+                    atomicAdd(reinterpret_cast<float2*>(at),
+                              make_float2(acc[nt][r], acc[nt][r + 1]));
+                else
+                    atomicAdd(at, acc[nt][r]);
+            }
     } else {
-        for_tile(acc, M, N, [&](int i, int j, float val) {
+        for_frag(acc, M, N, [&](int i, int j, float val) {
             atomicAdd(dst + i * s_i + j * s_j, val);
         });
     }
@@ -185,15 +206,17 @@ __device__ void spend(const float* g, const T* xb, const Weights<T>& w, const Gr
     float acc[4][4];
     for (int r0 = 0; r0 < D; r0 += TILE) {
         const int n = min(TILE, D - r0);
-        // dW[r0.., col0..] += x[:, r0..]^T g
+        // dW[r0.., col0..]^T += g^T x[:, r0..]: transposed, so that a thread's
+        // pairs run along dW's rows, the unit stride of an nn.Linear gradient
         zero(acc);
-        tile_gemm(acc, xb + r0, 1L, (long)D, n, g, (long)LD, 1L, hd, L, stage);
-        add_tile(acc, n, hd, gr.dwqkv + (long)r0 * gr.q_k + col0 * gr.q_j, gr.q_k, gr.q_j);
+        tile_mma<KT, true, KT, false>(acc, g, 1L, (long)LD, hd, xb + r0, (long)D, 1L, n, L, stage);
+        add_tile(acc, hd, n, gr.dwqkv + (long)r0 * gr.q_k + col0 * gr.q_j, gr.q_j, gr.q_k);
         // dx[:, r0..] += g W[r0.., col0..]^T
         zero(acc);
-        tile_gemm(acc, g, (long)LD, 1L, L,
-                  w.wqkv + (long)r0 * w.q_k + col0 * w.q_j, w.q_j, w.q_k, n, hd, stage);
-        for_tile(acc, L, n, [&](int i, int j, float val) {
+        tile_mma<TK, true, KT, false>(acc, g, (long)LD, 1L, L,
+                                      w.wqkv + (long)r0 * w.q_k + col0 * w.q_j, w.q_j, w.q_k, n,
+                                      hd, stage);
+        for_frag(acc, L, n, [&](int i, int j, float val) {
             const long at = base + (long)i * D + r0 + j;
             if (!first) val += gr.dxacc[at];
             if (last) store(gr.dx + at, val);
@@ -215,6 +238,7 @@ attn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, Weights<T> w,
     float* ds = smem + 5 * BUF;
     float* tmp = smem + 6 * BUF;
     float* stage = smem + BWD_BUFS * BUF;
+    for (int e = threadIdx.x; e < BWD_BUFS * BUF; e += THREADS) smem[e] = 0.0f;
     const int hd = D / H;
     const float scale = 1.0f / sqrtf((float)hd);
     const long base = (long)blockIdx.x * L * D;
@@ -235,25 +259,26 @@ attn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, Weights<T> w,
         scores_softmax(a, q, k, L, hd, scale, stage);
         // o = a v
         zero(acc);
-        tile_gemm(acc, a, (long)LD, 1L, L, v, (long)LD, 1L, hd, L, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
-        // dWproj[h*hd.., :] += o^T dy
+        tile_mma<TK, true, KT, true>(acc, a, (long)LD, 1L, L, v, (long)LD, 1L, hd, L, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
+        // dWproj[h*hd.., :]^T += dy^T o (transposed for the same reason as in spend)
         for (int c0 = 0; c0 < D; c0 += TILE) {
             const int n = min(TILE, D - c0);
             zero(acc);
-            tile_gemm(acc, tmp, 1L, (long)LD, hd, dyb + c0, (long)D, 1L, n, L, stage);
-            add_tile(acc, hd, n, gr.dwproj + (long)h * hd * gr.p_k + (long)c0 * gr.p_j,
-                     gr.p_k, gr.p_j);
+            tile_mma<KT, false, KT, true>(acc, dyb + c0, 1L, (long)D, n, tmp, (long)LD, 1L, hd, L,
+                                          stage);
+            add_tile(acc, n, hd, gr.dwproj + (long)h * hd * gr.p_k + (long)c0 * gr.p_j,
+                     gr.p_j, gr.p_k);
         }
         // do = dy Wproj[h*hd.., :]^T
         zero(acc);
-        tile_gemm(acc, dyb, (long)D, 1L, L, w.wproj + (long)h * hd * w.p_k, w.p_j, w.p_k, hd,
-                  D, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { dO[i * LD + j] = val; });
+        tile_mma<TK, false, KT, false>(acc, dyb, (long)D, 1L, L,
+                                       w.wproj + (long)h * hd * w.p_k, w.p_j, w.p_k, hd, D, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { dO[i * LD + j] = val; });
         // da = do v^T
         zero(acc);
-        tile_gemm(acc, dO, (long)LD, 1L, L, v, 1L, (long)LD, L, hd, stage);
-        for_tile(acc, L, L, [&](int i, int j, float val) { ds[i * LD + j] = val; });
+        tile_mma<TK, true, TK, true>(acc, dO, (long)LD, 1L, L, v, 1L, (long)LD, L, hd, stage);
+        for_frag(acc, L, L, [&](int i, int j, float val) { ds[i * LD + j] = val; });
         __syncthreads();
         // ds = a (da - sum_j da a) scale, row by row
         {
@@ -268,18 +293,18 @@ attn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, Weights<T> w,
         }
         // dq = ds k
         zero(acc);
-        tile_gemm(acc, ds, (long)LD, 1L, L, k, (long)LD, 1L, hd, L, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
+        tile_mma<TK, true, KT, true>(acc, ds, (long)LD, 1L, L, k, (long)LD, 1L, hd, L, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
         spend(tmp, xb, w, gr, 0, h, h == 0, false, base, L, D, hd, stage);
         // dk = ds^T q
         zero(acc);
-        tile_gemm(acc, ds, 1L, (long)LD, L, q, (long)LD, 1L, hd, L, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
+        tile_mma<KT, true, KT, true>(acc, ds, 1L, (long)LD, L, q, (long)LD, 1L, hd, L, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
         spend(tmp, xb, w, gr, 1, h, false, false, base, L, D, hd, stage);
         // dv = a^T do
         zero(acc);
-        tile_gemm(acc, a, 1L, (long)LD, L, dO, (long)LD, 1L, hd, L, stage);
-        for_tile(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
+        tile_mma<KT, true, KT, true>(acc, a, 1L, (long)LD, L, dO, (long)LD, 1L, hd, L, stage);
+        for_frag(acc, L, hd, [&](int i, int j, float val) { tmp[i * LD + j] = val; });
         spend(tmp, xb, w, gr, 2, h, false, h == H - 1, base, L, D, hd, stage);
         __syncthreads();
     }
@@ -289,7 +314,7 @@ template <typename T>
 int launch_fwd(const void* x, const void* wqkv, long q_k, long q_j, const void* bqkv,
                const void* wproj, long p_k, long p_j, const void* bproj,
                void* yacc, void* y, int B, int L, int D, int H, cudaStream_t stream) {
-    const int smem = (FWD_BUFS * BUF + STAGE_FLOATS) * (int)sizeof(float);
+    const int smem = (FWD_BUFS * BUF + MMA_STAGE_FLOATS) * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -306,7 +331,7 @@ int launch_bwd(const void* x, const void* dy, const void* wqkv, long q_k, long q
                void* dxacc, void* dx, void* dwqkv, long gq_k, long gq_j, void* dbqkv,
                void* dwproj, long gp_k, long gp_j, void* dbproj,
                int B, int L, int D, int H, cudaStream_t stream) {
-    const int smem = (BWD_BUFS * BUF + STAGE_FLOATS) * (int)sizeof(float);
+    const int smem = (BWD_BUFS * BUF + MMA_STAGE_FLOATS) * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

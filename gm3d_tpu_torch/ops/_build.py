@@ -130,6 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gm3d_attn_bwd.argtypes = [p, p, p, l, l, p, p, l, l, p, p, p, l, l, p, p, l, l, p,
                                   i, i, i, i, i, p]
     lib.gm3d_attn_bwd.restype = i
+    lib.gm3d_tile_mma_test.argtypes = [p, l, l, i, p, l, l, i, i, p, i, i, i, p]
+    lib.gm3d_tile_mma_test.restype = i
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

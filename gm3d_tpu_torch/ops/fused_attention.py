@@ -8,9 +8,9 @@ Layouts are the JAX package's: ``x`` (B, L, D); ``wqkv`` (D, 3D) with output
 columns laid out (3, H, hd); ``wproj`` (D, D), rows (H, hd). ``nn.Linear``
 stores (out, in): hand its weight over as the transposed VIEW
 (``linear.weight.t()``); the kernels address weights by strides and copy
-nothing. ``bqkv`` may be ``None`` (qkv has no bias by default). Math is fp32
-inside; ``x`` and the weights are fp32 or bf16 (one type for all), ``y`` and
-``dx`` come back in ``x``'s type and the weight gradients in the weights'.
+nothing. ``bqkv`` may be ``None`` (qkv has no bias by default). Sums are
+fp32 inside; ``x`` and the weights are fp32 or bf16 (one type for all), ``y``
+and ``dx`` come back in ``x``'s type and the weight gradients in the weights'.
 
 Two implementations of each function:
 
@@ -19,7 +19,10 @@ Two implementations of each function:
     the kernels are held against them on the card.
   - the CUDA kernels of ``csrc/fused_attention.cu`` (one block per cloud),
     which ``fused_attention`` and ``fused_attention_backward`` launch for
-    every CUDA tensor.
+    every CUDA tensor. Every product in them runs on the tensor cores at
+    fp32 accuracy: operands split into two TF32 halves, three ``mma`` passes
+    into fp32 accumulators (``csrc/tile_mma.cuh``; ``ops/tile_mma.py`` is the
+    plain version of that arithmetic).
 
 The wrappers take the plain versions only for tensors that lie on the CPU.
 For CUDA tensors they launch the kernel or raise. The backward kernel sums
@@ -76,19 +79,22 @@ def _check_kernel_limits(x: torch.Tensor, heads: int) -> None:
             f"{MAX_LEN} tokens and head_dim {MAX_HEAD_DIM}, got {length} and {dim // heads}")
 
 
-def reference_attention(x, wqkv, bqkv, wproj, bproj, heads: int = 6) -> torch.Tensor:
-    """Plain version: identical math, identical weight layout."""
+def reference_attention(x, wqkv, bqkv, wproj, bproj, heads: int = 6,
+                        matmul=torch.matmul) -> torch.Tensor:
+    """Plain version: identical math, identical weight layout. ``matmul``
+    computes its four products (the tests put the kernels' 3xTF32 emulation
+    there)."""
     _check(x, wqkv, bqkv, wproj, bproj, heads)
     batch, length, dim = x.shape
     hd = dim // heads
     f32 = torch.float32
-    qkv = x.to(f32) @ wqkv.to(f32)
+    qkv = matmul(x.to(f32), wqkv.to(f32))
     if bqkv is not None:
         qkv = qkv + bqkv.to(f32)
     q, k, v = qkv.reshape(batch, length, 3, heads, hd).permute(2, 0, 3, 1, 4)  # (B, H, L, hd)
-    attn = torch.softmax((q @ k.transpose(-1, -2)) * hd ** -0.5, dim=-1)
-    y = (attn @ v).transpose(1, 2).reshape(batch, length, dim)
-    return (y @ wproj.to(f32) + bproj.to(f32)).to(x.dtype)
+    attn = torch.softmax(matmul(q, k.transpose(-1, -2)) * hd ** -0.5, dim=-1)
+    y = matmul(attn, v).transpose(1, 2).reshape(batch, length, dim)
+    return (matmul(y, wproj.to(f32)) + bproj.to(f32)).to(x.dtype)
 
 
 def attention_backward_plain(x, dy, wqkv, bqkv, wproj, heads: int = 6):

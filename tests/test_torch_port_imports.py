@@ -63,13 +63,18 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    names = ["fps.cu", "fused_attention.cu", "knn.cu", "patch_embed.cu"]
+    names = ["fps.cu", "fused_attention.cu", "knn.cu", "patch_embed.cu", "tile_mma_test.cu"]
     for name in names:
         text = (PKG / "csrc" / name).read_text()
         assert 'extern "C"' in text and "torch/extension.h" not in text
         # a kernel is written here, not called: no library behind the C interface
         assert not re.search(r"cublas|cudnn|cutlass/gemm/device", text, re.I), name
     assert "fmaf" in (PKG / "csrc" / "tile_gemm.cuh").read_text()
+    # the attention kernels multiply on the tensor cores, in the repo's own source
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in (
+        PKG / "csrc" / "tile_mma.cuh").read_text()
+    attention = (PKG / "csrc" / "fused_attention.cu").read_text()
+    assert "tile_mma<" in attention and "tile_gemm" not in attention
     for entry in ("gm3d_attn_fwd", "gm3d_attn_bwd"):
         assert entry in (PKG / "csrc" / "fused_attention.cu").read_text()
     assert "gm3d_patch_embed" in (PKG / "csrc" / "patch_embed.cu").read_text()
