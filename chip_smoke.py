@@ -10,8 +10,9 @@ Phases, each printing one JSON line when it ends:
   env         card name and power limit, torch / CUDA / nvcc versions
   build       compiles ``gm3d_tpu_torch/csrc/*.cu`` and loads the library
   kernels     every kernel against its plain PyTorch version on the card
-              (indices must be EQUAL), the attention kernels' tensor-core tile
-              product against float64, then times at the main paths' shapes
+              (indices must be EQUAL), the tensor-core tile product of the
+              attention and patch-embed kernels against float64, then times at
+              the main paths' shapes
   serve       exports the full-width PointTransformer classifier (random
               weights from a seed) through the export CLI, serves it over
               HTTP with dynamic batching, checks the answers against the
@@ -72,10 +73,10 @@ CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
 DEV = torch.device("cuda", 0)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, the
-# fp32 rate outside the tensor cores (`bound_ms` of every kernel: FPS, KNN and
-# the patch embed are fp32 vector code, and the attention kernels keep that
+# fp32 rate outside the tensor cores (`bound_ms` of every kernel: FPS and KNN
+# are fp32 vector code, and the patch-embed and attention kernels keep that
 # yardstick) and the dense TF32 rate inside them (`tensor_bound_ms` of the
-# attention kernels, whose products are three TF32 passes).
+# patch-embed and attention kernels, whose products are three TF32 passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -205,10 +206,12 @@ TOL_TILE_MMA_SUM = 2.0 ** -21
 
 
 def _tile_mma_checks(rng) -> list[dict]:
-    """The attention kernels' tile product, one block at a time, in every
-    operand form they use: ragged M, N, K, each operand plain and transposed,
+    """The kernels' tile product, one block at a time, in every operand form
+    they use. Attention: ragged M, N, K, each operand plain and transposed,
     fp32 and bf16, each from device memory (through a staged panel) and from
-    a shared-memory buffer (read in place)."""
+    a shared-memory buffer (read in place). Patch embed: A read in place from
+    a shared-memory buffer of row stride 136, 264 or 520 (K 128, 256, 512),
+    B columns of an (in, out) weight in device memory, alone in the stage."""
     def t(rows, cols, scale, dtype, transposed):
         shape = (cols, rows) if transposed else (rows, cols)
         v = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)
@@ -241,6 +244,29 @@ def _tile_mma_checks(rng) -> list[dict]:
                        "cases": cases, "rel_err": worst, "tol": TOL_TILE_MMA,
                        "err_over_sum_abs": worst_of_sum, "tol_over_sum_abs": TOL_TILE_MMA_SUM,
                        "equal": True})
+    # the patch embed's form; the weight's columns start at an offset, which with
+    # its row length decides between the 16-byte copies and the element-wise ones
+    for what, width, c0 in (("16-byte copies", 384, 64), ("row length 30", 30, 0),
+                            ("offset 2", 384, 2)):
+        worst, worst_of_sum, cases = 0.0, 0.0, 0
+        for k, m, n in itertools.product((128, 256, 512), (64, 39, 32, 7), (64, 25)):
+            n = min(n, width - c0)
+            a, b = t(m, k, 1.0, torch.float32, False), t(k, width, 0.05, torch.float32, False)
+            b = b[:, c0:c0 + n]
+            got = tm.tile_product(a, b, wide_a=True)
+            want = a.double() @ b.double()
+            err, rel = _rel_err(got, want)
+            size = float((a.double().abs() @ b.double().abs()).max())
+            check(err <= TOL_TILE_MMA_SUM * size and rel <= TOL_TILE_MMA,
+                  f"tile_mma off at M{m} N{n} K{k}, A wide in shared memory, B device "
+                  f"({what}): {rel} > {TOL_TILE_MMA} or {err / size} > {TOL_TILE_MMA_SUM}")
+            worst, worst_of_sum, cases = max(worst, rel), max(worst_of_sum, err / size), cases + 1
+        checks.append({"kernel": "tile_mma", "dtype": "float32",
+                       "a": "shared, row stride K + 8, K 128 / 256 / 512",
+                       "b": f"device, columns {c0}.. of {width}, alone in the stage ({what})",
+                       "cases": cases, "rel_err": worst, "tol": TOL_TILE_MMA,
+                       "err_over_sum_abs": worst_of_sum, "tol_over_sum_abs": TOL_TILE_MMA_SUM,
+                       "equal": True})
     torch.cuda.synchronize()
     check(tm.tile_product.launches - before == sum(c["cases"] for c in checks), "launch count")
     # not asserted, for the record: the same product summed through one chain of
@@ -258,9 +284,15 @@ def _tile_mma_checks(rng) -> list[dict]:
 
 def _patch_embed_checks(rng) -> tuple[list[dict], dict]:
     checks, worst = [], 0.0
-    for name, shape, seed in (("train step", (256, NUM_GROUP, GROUP_SIZE, 3), 0),
-                              ("odd B3 G5 S7", (3, 5, 7, 3), 1)):
-        enc = _random_patch_encoder(seed)
+    # S 7 and S 16: four groups a block; B3 G5 S32: the last block has one group
+    for name, shape, seed, out_dim in (
+            ("train step", (256, NUM_GROUP, GROUP_SIZE, 3), 0, 384),
+            ("odd B3 G5 S7", (3, 5, 7, 3), 1, 384),
+            ("ragged last block B3 G5 S32", (3, 5, GROUP_SIZE, 3), 2, 384),
+            ("four groups a block B5 G6 S16", (5, 6, 16, 3), 3, 384),
+            ("one group a block B2 G3 S64", (2, 3, 64, 3), 4, 384),
+            ("C 30, not a multiple of 4", (2, 3, GROUP_SIZE, 3), 5, 30)):
+        enc = _random_patch_encoder(seed, out_dim)
         params = pe.params_from_module(enc)
         x = torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(np.float32)).to(DEV)
         got = pe.fused_patch_embed(x, params)
@@ -286,12 +318,19 @@ def _patch_embed_checks(rng) -> tuple[list[dict], dict]:
     weight_bytes = sum(t.numel() for t in params) * 4
     # per point: the four layers, the concat's first half once per group
     flops = b * g * (s * 2.0 * (3 * 128 + 128 * 256 + 256 * 512 + 512 * c) + 2.0 * 256 * 512)
-    bound_ms, by = bound(b * g * s * 12 + weight_bytes + b * g * c * 4, flops)
+    moved = b * g * s * 12 + weight_bytes + b * g * c * 4
+    bound_ms, by = bound(moved, flops)
+    # one served batch (B 128), for the record: serving does not enter this kernel
+    half = x[:SERVE_BATCH]
+    ms_128 = cuda_ms(lambda: pe.fused_patch_embed(half, params), runs=20, warmup=2)
+    with torch.no_grad():
+        module_128 = cuda_ms(lambda: enc(half), runs=20, warmup=2)
     timed = {"name": "patch_embed", "route": "cuda",
              "source": "gm3d_tpu_torch/csrc/patch_embed.cu",
              "replaces": "gm3d_tpu/ops/patch_embed.py:69", "shape": [b, g, s, 3],
              "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-             "bound_by": by, "library_ms": None}
+             "bound_by": by, "tensor_bound_ms": tensor_bound(moved, flops), "library_ms": None,
+             "ms_at_batch_128": ms_128, "patch_encoder_eval_ms_at_batch_128": module_128}
     return checks, timed
 
 

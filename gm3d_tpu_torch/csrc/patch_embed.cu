@@ -17,23 +17,55 @@
 // lives in h3's room before h3 exists). The concat is never built: the
 // half of W3 that meets g is applied once per group, not once per point,
 // and enters conv3 as a per-group bias (that is a quarter of the TPU
-// kernel's operations saved). The weights (1.9 MB) stream out of L2 through
-// tile_gemm's staging.
+// kernel's operations saved).
 //
-// What bounds it: operations, 23.4 MFLOP a group of 32 points in fp32 FFMA
-// against 384 B in and 1.5 KB out. Everything stays fp32: the tokens feed a
-// rank (the geometric mask), where near-ties flip.
+// What bounds it: operations, 23.4 MFLOP a group of 32 points against 384 B
+// in and 1.5 KB out. The three large products (conv2, conv3, conv4: all but
+// 1% of the operations) run on the tensor cores through tile_mma.cuh at fp32
+// accuracy (3xTF32: the tokens feed a rank, the geometric mask, where
+// near-ties flip; one TF32 pass or bf16 would not do). Their A operands are
+// the activations where they lie in shared memory (DIRECT: nothing is copied,
+// no barrier is held for them), which is why the row strides are 8 mod 32
+// words and why every activation buffer is written over all 64 rows, zeros
+// past the block's last point. The weights (1.9 MB, every block streams all
+// of them out of L2) are staged 32 deep by cp.async into two panels in turn.
+// conv1 (K = 3), the maxima and the per-group term (1% of the operations, but
+// a quarter of the weights' bytes) stay fp32 vector code.
+//
+// An epilogue may write a buffer that a LATER product reads, never one that a
+// later tile of the SAME product reads: conv2 reads h1 and writes h2, conv3
+// reads h2 and writes h3 over h1's room, conv4 reads h3 and writes its output
+// tile into h2's room.
 
-#include "tile_gemm.cuh"
+#include <initializer_list>
+
+#include "tile_mma.cuh"
 
 namespace {
 
 using namespace gm3d;
 
 constexpr int C1 = 128, C2 = 256, C3 = 512;
-// row strides of the activations: 8 mod 32 words (see tile_gemm.cuh)
-constexpr int LD1 = C1 + 8, LD2 = C2 + 8, LD3 = C3 + 8;
+// row strides of the activations: 8 mod 32 words (see tile_mma.cuh: a DIRECT
+// operand with k at unit stride, read in pairs)
+constexpr int LD1 = C1 + 8, LD2 = C2 + 8, LD3 = C3 + 8, LDO = TILE + 8;
 constexpr int MAX_GROUPS = 4;  // groups a block may own
+// the weights' two (32, 68) panels: tile_mma's B_ONLY stage
+constexpr int STAGE = mma_b_stage_floats(KT, pairs_map(TK, true, KT, false));
+// Shared memory of a block, in floats: h2 64 x 264 = 16896, h3 64 x 520 =
+// 33280, gmax and gterm 4 x (256 + 512) = 3072, the stage 2 x 32 x 68 = 4352;
+// 57600 floats = 230,400 B of the 232,448 B a block may have.
+constexpr int SMEM_FLOATS = TILE * LD2 + TILE * LD3 + MAX_GROUPS * (C2 + C3) + STAGE;
+static_assert(SMEM_FLOATS * sizeof(float) <= 232448, "a block's shared memory");
+static_assert(TILE * LDO <= TILE * LD2, "conv4's output tile lives in h2's room");
+
+// acc += A W[:, c0 : c0 + n] for an activation buffer A (64, K) in shared
+// memory, read in place, and an (in, out) weight matrix W of `ldw` columns
+__device__ __forceinline__ void product(float (&acc)[4][4], const float* A, int lda, int rows,
+                                        const float* W, int ldw, int n, int K, float* stage) {
+    tile_mma<TK, true, KT, false, false, true>(acc, A, (long)lda, 1L, rows, W, (long)ldw, 1L, n,
+                                               K, stage);
+}
 
 struct Params {
     const float *w1, *b1, *s1, *t1;  // (3, C1), (C1) x3
@@ -47,6 +79,7 @@ patch_embed_kernel(const float* __restrict__ pts, Params p, float* __restrict__ 
                    int total_groups, int S, int gpb, int C) {
     extern __shared__ __align__(16) float smem[];
     float* h2 = smem;                        // TILE x C2, later a TILE x TILE output tile
+    float* tile = h2;
     float* h3 = h2 + TILE * LD2;             // TILE x C3
     float* h1 = h3;                          // TILE x C1, dead before h3 is written
     float* gmax = h3 + TILE * LD3;           // MAX_GROUPS x C2
@@ -59,24 +92,31 @@ patch_embed_kernel(const float* __restrict__ pts, Params p, float* __restrict__ 
     const float* x = pts + (long)g0 * S * 3;
 
     // conv1 + BN1 + ReLU
-    for (int e = tid; e < TILE * C1; e += THREADS) {
-        const int r = e / C1, c = e % C1;
-        float v = 0.0f;
-        if (r < rows) {
-            float z = x[r * 3] * p.w1[c];
-            z = fmaf(x[r * 3 + 1], p.w1[C1 + c], z);
-            z = fmaf(x[r * 3 + 2], p.w1[2 * C1 + c], z);
-            v = fmaxf(fmaf(z + p.b1[c], p.s1[c], p.t1[c]), 0.0f);
+    {
+        static_assert(THREADS % C1 == 0, "a thread keeps its column of h1 in every round");
+        const int c = tid % C1;
+        const float wx = p.w1[c], wy = p.w1[C1 + c], wz = p.w1[2 * C1 + c];
+        const float b = p.b1[c], sc = p.s1[c], sh = p.t1[c];
+        for (int r = tid / C1; r < TILE; r += THREADS / C1) {
+            float v = 0.0f;
+            if (r < rows) {
+                float z = x[r * 3] * wx;
+                z = fmaf(x[r * 3 + 1], wy, z);
+                z = fmaf(x[r * 3 + 2], wz, z);
+                v = fmaxf(fmaf(z + b, sc, sh), 0.0f);
+            }
+            h1[r * LD1 + c] = v;
         }
-        h1[r * LD1 + c] = v;
     }
     float acc[4][4];
     // conv2
     for (int c0 = 0; c0 < C2; c0 += TILE) {
         zero(acc);
-        tile_gemm(acc, h1, (long)LD1, 1L, rows, p.w2 + c0, (long)C2, 1L, TILE, C1, stage);
-        for_tile(acc, rows, TILE, [&](int i, int j, float v) {
-            h2[i * LD2 + c0 + j] = v + p.b2[c0 + j];
+        product(acc, h1, LD1, rows, p.w2 + c0, C2, TILE, C1, stage);
+        for_frag_pairs(acc, [&](int i, int j, float v0, float v1) {
+            const float2 b = __ldg(reinterpret_cast<const float2*>(p.b2 + c0 + j));
+            *reinterpret_cast<float2*>(h2 + i * LD2 + c0 + j) =
+                i < rows ? make_float2(v0 + b.x, v1 + b.y) : make_float2(0.0f, 0.0f);
         });
     }
     __syncthreads();
@@ -88,44 +128,72 @@ patch_embed_kernel(const float* __restrict__ pts, Params p, float* __restrict__ 
         gmax[e] = m;
     }
     __syncthreads();
-    // the concat's first half, once per group: gterm = gmax W3[:C2] + b3
-    for (int c = tid; c < C3; c += THREADS) {
-        float t[MAX_GROUPS];
-#pragma unroll
-        for (int g = 0; g < MAX_GROUPS; ++g) t[g] = 0.0f;
-        for (int k = 0; k < C2; ++k) {
-            const float wv = p.w3[k * C3 + c];
-#pragma unroll
-            for (int g = 0; g < MAX_GROUPS; ++g)
-                if (g < ng) t[g] = fmaf(gmax[g * C2 + k], wv, t[g]);
-        }
+    // the concat's first half, once per group: gterm = gmax W3[:C2] + b3. A
+    // block reads 512 KB of W3 for it, and what it waits for is L2: 16-byte
+    // loads, eight in flight a thread. A thread owns four columns and one half
+    // of k; the halves meet in the stage, which no product is using
+    {
+        static_assert(THREADS == 2 * (C3 / 4) && MAX_GROUPS * C3 <= STAGE, "per-group term");
+        const int c = 4 * (tid % (C3 / 4)), k0 = (tid / (C3 / 4)) * (C2 / 2);
+        float t[MAX_GROUPS][4];
 #pragma unroll
         for (int g = 0; g < MAX_GROUPS; ++g)
-            if (g < ng) gterm[g * C3 + c] = t[g] + p.b3[c];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) t[g][u] = 0.0f;
+#pragma unroll 8
+        for (int k = k0; k < k0 + C2 / 2; ++k) {
+            const float4 w4 = *reinterpret_cast<const float4*>(p.w3 + k * C3 + c);
+            const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int g = 0; g < MAX_GROUPS; ++g)
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (g < ng) t[g][u] = fmaf(gmax[g * C2 + k], w[u], t[g][u]);
+        }
+        if (k0 > 0)
+#pragma unroll
+            for (int g = 0; g < MAX_GROUPS; ++g)
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (g < ng) stage[g * C3 + c + u] = t[g][u];
+        __syncthreads();
+        if (k0 == 0)
+#pragma unroll
+            for (int g = 0; g < MAX_GROUPS; ++g)
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (g < ng)
+                        gterm[g * C3 + c + u] = (t[g][u] + stage[g * C3 + c + u]) + p.b3[c + u];
     }
     __syncthreads();
     // conv3 (second half of W3) + BN2 + ReLU; h3 takes h1's room
     for (int c0 = 0; c0 < C3; c0 += TILE) {
         zero(acc);
-        tile_gemm(acc, h2, (long)LD2, 1L, rows, p.w3 + (long)C2 * C3 + c0, (long)C3, 1L, TILE,
-                  C2, stage);
-        for_tile(acc, rows, TILE, [&](int i, int j, float v) {
+        product(acc, h2, LD2, rows, p.w3 + (long)C2 * C3 + c0, C3, TILE, C2, stage);
+        for_frag_pairs(acc, [&](int i, int j, float v0, float v1) {
             const int c = c0 + j;
-            v += gterm[(i / S) * C3 + c];
-            h3[i * LD3 + c] = fmaxf(fmaf(v, p.s2[c], p.t2[c]), 0.0f);
+            float2 v = make_float2(0.0f, 0.0f);
+            if (i < rows) {
+                const float2 sc = __ldg(reinterpret_cast<const float2*>(p.s2 + c));
+                const float2 sh = __ldg(reinterpret_cast<const float2*>(p.t2 + c));
+                const float2 gt = *reinterpret_cast<const float2*>(gterm + (i / S) * C3 + c);
+                v.x = fmaxf(fmaf(v0 + gt.x, sc.x, sh.x), 0.0f);
+                v.y = fmaxf(fmaf(v1 + gt.y, sc.y, sh.y), 0.0f);
+            }
+            *reinterpret_cast<float2*>(h3 + i * LD3 + c) = v;
         });
     }
     // conv4 + per-group max, one tile of columns at a time through h2's room
     for (int c0 = 0; c0 < C; c0 += TILE) {
         const int n = min(TILE, C - c0);
         zero(acc);
-        tile_gemm(acc, h3, (long)LD3, 1L, rows, p.w4 + c0, (long)C, 1L, n, C3, stage);
-        for_tile(acc, rows, n, [&](int i, int j, float v) { h2[i * TILE + j] = v; });
+        product(acc, h3, LD3, rows, p.w4 + c0, C, n, C3, stage);
+        for_frag(acc, rows, n, [&](int i, int j, float v) { tile[i * LDO + j] = v; });
         __syncthreads();
         for (int e = tid; e < ng * n; e += THREADS) {
             const int g = e / n, j = e % n;
-            float m = h2[(g * S) * TILE + j];
-            for (int s = 1; s < S; ++s) m = fmaxf(m, h2[(g * S + s) * TILE + j]);
+            float m = tile[(g * S) * LDO + j];
+            for (int s = 1; s < S; ++s) m = fmaxf(m, tile[(g * S + s) * LDO + j]);
             out[(long)(g0 + g) * C + c0 + j] = m + p.b4[c0 + j];
         }
         __syncthreads();
@@ -136,16 +204,21 @@ patch_embed_kernel(const float* __restrict__ pts, Params p, float* __restrict__ 
 
 // pts (total_groups, S, 3) fp32 contiguous -> out (total_groups, C) fp32.
 // Weights fp32 contiguous, (in, out); s1/t1, s2/t2 the folded BatchNorms. A
-// block owns `gpb` groups: gpb <= 4 and gpb * S <= 64. Returns the launch's
-// cudaError_t (0 = success).
+// block owns `gpb` groups: gpb <= 4 and gpb * S <= 64, or the call is refused
+// (cudaErrorInvalidValue), as is a parameter that is not 16-byte aligned (w3
+// and the epilogues' vectors are read 16 and 8 bytes at a time). w4's panels
+// are copied 16 bytes at a time where C is a multiple of 4, else element by
+// element. Returns the launch's cudaError_t (0 = success).
 extern "C" int gm3d_patch_embed(const void* pts, const void* w1, const void* b1, const void* s1,
                                 const void* t1, const void* w2, const void* b2, const void* w3,
                                 const void* b3, const void* s2, const void* t2, const void* w4,
                                 const void* b4, void* out, int total_groups, int S, int gpb,
                                 int C, void* stream) {
     if (gpb < 1 || gpb > MAX_GROUPS || gpb * S > TILE) return (int)cudaErrorInvalidValue;
-    const int smem = (TILE * LD2 + TILE * LD3 + MAX_GROUPS * (C2 + C3) + STAGE_FLOATS)
-                     * (int)sizeof(float);
+    if (total_groups < 1 || S < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    for (const void* param : {w1, b1, s1, t1, w2, b2, w3, b3, s2, t2, w4, b4})
+        if (reinterpret_cast<size_t>(param) % 16 != 0) return (int)cudaErrorInvalidValue;
+    const int smem = SMEM_FLOATS * (int)sizeof(float);  // 230,400 B, summed above
     cudaError_t err = cudaFuncSetAttribute(patch_embed_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

@@ -1,17 +1,19 @@
-// tile_gemm's product on the tensor cores, at fp32 accuracy ("3xTF32").
-//
-// Same contract as tile_gemm.cuh::tile_gemm: a block of THREADS threads adds
+// The one matrix product of the kernels whose bodies are chains of small
+// products (fused_attention.cu, patch_embed.cu): on the tensor cores, at fp32
+// accuracy ("3xTF32"). A block of THREADS threads adds
 //
 //     acc(i, j) += sum_{k < K} A(i, k) * B(k, j),    i < M <= TILE, j < N <= TILE
 //
 // operands by element strides (a transposed operand is a swap of strides),
 // ragged M, N, K zero-filled, the sum in fp32 registers, every thread of the
 // block calls it (it holds barriers; the first also orders the caller's
-// earlier shared-memory writes before any operand is read).
+// earlier shared-memory writes before any operand is read, so an epilogue may
+// write a buffer that a LATER call reads, but not one that a later tile of
+// the SAME product reads).
 //
 // The multiply-adds are mma.sync.aligned.m16n8k8 with TF32 operands and fp32
 // accumulators. TF32 keeps 10 explicit mantissa bits; one pass would leave
-// three digits, and the attention kernels' outputs feed a rank. So each
+// three digits, and the kernels' outputs feed a rank. So each
 // operand element v is split into two TF32 numbers,
 //
 //     hi = v rounded to 11 significant bits        lo = v - hi   (exact)
@@ -48,11 +50,13 @@
 // counts is how little stands between two mma, not how many there are:
 //
 //   - An operand that already lies in shared memory as fp32 (DIRECT: q, k, v,
-//     the scores and their gradients, in the kernels' (64, 72) buffers) is
-//     read by the mma fragments where it is. Nothing is staged and no barrier
-//     is held for it. Such a buffer must be a whole (64, 64) with zeros
-//     outside its M x K (or K x N) part: the kernels zero their buffers once
-//     and never write outside the valid part.
+//     the scores and their gradients, in the attention kernels' (64, 72)
+//     buffers; the patch embed's activations, 64 rows of 136, 264 or 520
+//     words) is read by the mma fragments where it is. Nothing is staged and
+//     no barrier is held for it. Such a buffer must be whole, 64 rows (or
+//     columns) by K rounded up to KTILE, with zeros outside its M x K (or
+//     K x N) part: the attention kernels zero their buffers once and never
+//     write outside the valid part, the patch embed writes zeros there.
 //   - Any other operand (device memory, or bf16) is staged KTILE deep into an
 //     fp32 panel with cp.async, 16 bytes a thread and zero-filled past the
 //     ragged edges by the copy itself, into one of two panels in turn: the
@@ -99,6 +103,10 @@ __host__ __device__ constexpr bool pairs_map(Layout la, bool da, Layout lb, bool
 }
 __host__ __device__ constexpr int panel_ld(Layout lay, bool pairs) {
     return lay == TK ? (pairs ? KTILE + 8 : KTILE + 4) : (pairs ? TILE + 4 : TILE + 8);
+}
+// floats of two panels of one operand at their own size (tile_mma's B_ONLY stage)
+__host__ __device__ constexpr int mma_b_stage_floats(Layout lay, bool pairs) {
+    return 2 * (lay == TK ? TILE : KTILE) * panel_ld(lay, pairs);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
@@ -217,15 +225,22 @@ __device__ __forceinline__ void mma_tile(float (&sum)[4][4], const float* a, int
 // LA, LB: the operands' layouts. DA, DB: the operand is DIRECT (fp32 in
 // shared memory in that layout, zero-padded); otherwise the layout is that
 // of its panel, and the fast copy needs the matching stride to be 1.
-// `stage` holds MMA_STAGE_FLOATS words.
-template <Layout LA, bool DA, Layout LB, bool DB, bool CHAIN = false, typename TA, typename TB>
+// `stage` holds MMA_STAGE_FLOATS words: two panels of MMA_PANEL for A, then
+// two for B. B_ONLY (A DIRECT, B staged) is for a kernel that has no room to
+// spare: `stage` then holds B's two panels alone, back to back at their own
+// size, mma_b_stage_floats() words.
+template <Layout LA, bool DA, Layout LB, bool DB, bool CHAIN = false, bool B_ONLY = false,
+          typename TA, typename TB>
 __device__ __forceinline__ void tile_mma(float (&acc)[4][4],
                           const TA* A, long sa_i, long sa_k, int M,
                           const TB* B, long sb_k, long sb_j, int N,
                           int K, float* stage) {
     static_assert((!DA || sizeof(TA) == 4) && (!DB || sizeof(TB) == 4), "DIRECT means fp32");
+    static_assert(!B_ONLY || (DA && !DB), "a stage of B's panels alone: A DIRECT, B staged");
     constexpr bool PAIRS = pairs_map(LA, DA, LB, DB);
     constexpr int PA_LD = panel_ld(LA, PAIRS), PB_LD = panel_ld(LB, PAIRS);
+    constexpr int PB_SIZE = B_ONLY ? mma_b_stage_floats(LB, PAIRS) / 2 : MMA_PANEL;
+    float* const stage_b = stage + (B_ONLY ? 0 : 2 * MMA_PANEL);
     const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
     const int row = 16 * (warp >> 1) + g, col = 32 * (warp & 1) + g;
     // a warp whose 16 x 32 lies past the ragged edge has only zeros to add (the
@@ -235,7 +250,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[4][4],
     const int b_ld = DB ? (int)(LB == TK ? sb_j : sb_k) : PB_LD;
     __syncthreads();
     if (!DA) stage_panel<LA, PA_LD>(stage, A, sa_i, sa_k, M, K, 0);
-    if (!DB) stage_panel<LB, PB_LD>(stage + 2 * MMA_PANEL, B, sb_j, sb_k, N, K, 0);
+    if (!DB) stage_panel<LB, PB_LD>(stage_b, B, sb_j, sb_k, N, K, 0);
     cp_async_commit();
     int buf = 0;
     for (int k0 = 0; k0 < K; k0 += KTILE, buf ^= 1) {
@@ -249,8 +264,8 @@ __device__ __forceinline__ void tile_mma(float (&acc)[4][4],
                     stage_panel<LA, PA_LD>(stage + (buf ^ 1) * MMA_PANEL, A, sa_i, sa_k, M, K,
                                            k0 + KTILE);
                 if (!DB)
-                    stage_panel<LB, PB_LD>(stage + (2 + (buf ^ 1)) * MMA_PANEL, B, sb_j, sb_k, N,
-                                           K, k0 + KTILE);
+                    stage_panel<LB, PB_LD>(stage_b + (buf ^ 1) * PB_SIZE, B, sb_j, sb_k, N, K,
+                                           k0 + KTILE);
                 cp_async_commit();
             }
         }
@@ -259,7 +274,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[4][4],
                             : stage + buf * MMA_PANEL + (LA == TK ? row * PA_LD : row);
         const float* b = DB ? reinterpret_cast<const float*>(B) +
                                   (LB == TK ? col * sb_j + k0 : k0 * sb_k + col)
-                            : stage + (2 + buf) * MMA_PANEL + (LB == TK ? col * PB_LD : col);
+                            : stage_b + buf * PB_SIZE + (LB == TK ? col * PB_LD : col);
         if (!live) continue;
         if (CHAIN) {
             mma_tile<LA, LB, PAIRS>(acc, a, a_ld, b, b_ld);
@@ -288,6 +303,20 @@ __device__ __forceinline__ void for_frag(const float (&acc)[4][4], int M, int N,
             const int i = i0 + 8 * (r >> 1), j = j0 + 8 * nt + (r & 1);
             if (i < M && j < N) f(i, j, acc[nt][r]);
         }
+}
+
+// f(i, j, v0, v1) for each of the thread's output pairs (i, j), (i, j + 1) of
+// the whole TILE x TILE (j is even), row by row: for epilogues that load and
+// store eight bytes at a time
+template <typename F>
+__device__ __forceinline__ void for_frag_pairs(const float (&acc)[4][4], F f) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int i0 = 16 * (warp >> 1) + (lane >> 2), j0 = 32 * (warp & 1) + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+            f(i0 + 8 * h, j0 + 8 * nt, acc[nt][2 * h], acc[nt][2 * h + 1]);
 }
 
 }  // namespace gm3d

@@ -1,8 +1,8 @@
 // One block, one product through tile_mma.cuh, written out through for_frag:
 // the unit check of the tensor-core tile product, so that a wrong fragment
 // map, panel layout or copy shows in one 64 x 64 tile and not inside the
-// attention kernels. ops/tile_mma.py::tile_product launches it; it is on no
-// model's path.
+// attention or patch-embed kernels. ops/tile_mma.py::tile_product launches
+// it; it is on no model's path.
 
 #include <type_traits>
 
@@ -51,6 +51,33 @@ tile_mma_test_kernel(const T* A, long sa_i, long sa_k, int M, const T* B, long s
     for_frag(acc, M, N, [&](int i, int j, float v) { out[i * N + j] = v; });
 }
 
+// The patch embed's form: A (M, K) copied into a zeroed (64, K + 8) fp32 buffer
+// in shared memory (K = 128, 256, 512 give its row strides 136, 264, 520) and
+// read in place; B an (in, out) weight matrix in device memory, columns at unit
+// stride, staged into a stage that holds B's two panels and nothing else.
+constexpr int WIDE_K = 512;
+constexpr int WIDE_STAGE = mma_b_stage_floats(KT, pairs_map(TK, true, KT, false));
+
+__global__ void __launch_bounds__(THREADS)
+tile_mma_wide_kernel(const float* A, long sa_i, long sa_k, int M, const float* B, long sb_k,
+                     int N, int K, float* out) {
+    extern __shared__ __align__(16) float smem[];
+    float* stage = smem;
+    float* bufA = smem + WIDE_STAGE;
+    const int ld = K + 8;
+    for (int e = threadIdx.x; e < TILE * ld; e += THREADS) bufA[e] = 0.0f;
+    __syncthreads();
+    for (int e = threadIdx.x; e < M * K; e += THREADS) {
+        const int i = e / K, k = e % K;
+        bufA[i * ld + k] = A[i * sa_i + k * sa_k];
+    }
+    float acc[4][4];
+    zero(acc);
+    tile_mma<TK, true, KT, false, false, true>(acc, bufA, (long)ld, 1L, M, B, sb_k, 1L, N, K,
+                                               stage);
+    for_frag(acc, M, N, [&](int i, int j, float v) { out[i * N + j] = v; });
+}
+
 struct Args {
     const void *A, *B;
     long sa_i, sa_k, sb_k, sb_j;
@@ -80,6 +107,16 @@ int by_layout(const Args& a) {
     return b_kt ? launch<T, TK, DA, KT, DB>(a) : launch<T, TK, DA, TK, DB>(a);
 }
 
+int launch_wide(const Args& a) {
+    const int smem = (WIDE_STAGE + TILE * (WIDE_K + 8)) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(tile_mma_wide_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    tile_mma_wide_kernel<<<1, THREADS, smem, a.stream>>>(
+        (const float*)a.A, a.sa_i, a.sa_k, a.M, (const float*)a.B, a.sb_k, a.N, a.K, a.out);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 int by_source(const Args& a, int shared) {
     switch (shared & 3) {
@@ -96,17 +133,23 @@ int by_source(const Args& a, int shared) {
 // B(k, j) = B[k*sb_k + j*sb_j] (K, N), M, N <= 64; both fp32, or both bf16
 // (`bf16` != 0). `shared` bit 0 (bit 1) first copies A (B) into a padded fp32
 // shared-memory buffer and multiplies from there, as the attention kernels do
-// with q, k, v and the scores (then K <= 64). `chain` != 0 (fp32 from device
-// memory, both with unit stride in k) sums all of K through one chain of mma
-// accumulators, which the kernels do not. Returns the launch's cudaError_t
-// (0 = success).
+// with q, k, v and the scores (then K <= 64). `shared` == 4 is the patch
+// embed's form (fp32, K a multiple of 32 up to 512, sb_j == 1): A in a
+// (64, K + 8) shared-memory buffer read in place, B staged alone. `chain` != 0
+// (fp32 from device memory, both with unit stride in k) sums all of K through
+// one chain of mma accumulators, which the kernels do not. Returns the
+// launch's cudaError_t (0 = success).
 extern "C" int gm3d_tile_mma_test(const void* A, long sa_i, long sa_k, int M, const void* B,
                                   long sb_k, long sb_j, int N, int K, void* out, int bf16,
                                   int shared, int chain, void* stream) {
-    if (M < 1 || N < 1 || K < 1 || M > TILE || N > TILE || (shared && K > TILE) ||
+    const bool wide = shared == 4;
+    if (M < 1 || N < 1 || K < 1 || M > TILE || N > TILE || shared < 0 || shared > 4 ||
+        (shared && !wide && K > TILE) ||
+        (wide && (bf16 || chain || K % KTILE != 0 || K > WIDE_K || sb_j != 1)) ||
         (chain && (bf16 || shared || sa_k != 1 || sb_k != 1)))
         return (int)cudaErrorInvalidValue;
     const Args a{A, B, sa_i, sa_k, sb_k, sb_j, M, N, K, (float*)out, (cudaStream_t)stream};
+    if (wide) return launch_wide(a);
     if (chain) return launch<float, TK, false, TK, false, true>(a);
     return bf16 ? by_source<__nv_bfloat16>(a, shared) : by_source<float>(a, shared);
 }

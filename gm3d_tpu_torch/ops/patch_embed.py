@@ -16,7 +16,9 @@ Two implementations of the same function:
     computes (the concat's first half applied once per group). The CPU tests
     use it and the kernel is held against it on the card.
   - the CUDA kernel ``csrc/patch_embed.cu``, which ``fused_patch_embed``
-    launches for every CUDA tensor.
+    launches for every CUDA tensor. Its three large products (conv2, conv3's
+    second half, conv4) run on the tensor cores at fp32 accuracy (3xTF32,
+    ``csrc/tile_mma.cuh``; emulated on the CPU by ``ops/tile_mma.py``).
 
 ``fused_patch_embed`` takes the plain version only for tensors that lie on
 the CPU. For CUDA tensors it launches the kernel or raises.
@@ -100,27 +102,30 @@ def _check(neighborhood: torch.Tensor, params: PatchEmbedParams) -> None:
             raise ValueError(f"patches on {neighborhood.device} but {name} on {t.device}")
 
 
-def fused_patch_embed_plain(neighborhood: torch.Tensor,
-                            params: PatchEmbedParams) -> torch.Tensor:
+def fused_patch_embed_plain(neighborhood: torch.Tensor, params: PatchEmbedParams,
+                            matmul=torch.matmul) -> torch.Tensor:
     """Plain version. (B, G, S, 3) center-normalised patches -> (B, G, C_out)
-    fp32 tokens."""
+    fp32 tokens. ``matmul`` computes the three products that the kernel takes
+    to the tensor cores (``ops.tile_mma.matmul_3xtf32_plain`` emulates them)."""
     _check(neighborhood, params)
     p = PatchEmbedParams(*(t.to(torch.float32) for t in params))
     x = neighborhood.to(torch.float32)
     h1 = torch.relu((x @ p.w1 + p.b1) * p.bn1_scale + p.bn1_shift)
-    h2 = h1 @ p.w2 + p.b2  # (B, G, S, 256)
+    h2 = matmul(h1, p.w2) + p.b2  # (B, G, S, 256)
     gmax = h2.max(dim=-2, keepdim=True).values  # (B, G, 1, 256)
     # [gmax, h2] @ W3 without the concat: the first half once per group
-    h3 = h2 @ p.w3[_C2:] + (gmax @ p.w3[:_C2] + p.b3)
+    h3 = matmul(h2, p.w3[_C2:]) + (gmax @ p.w3[:_C2] + p.b3)
     h3 = torch.relu(h3 * p.bn2_scale + p.bn2_shift)
-    h4 = h3 @ p.w4
+    h4 = matmul(h3, p.w4)
     return h4.max(dim=-2).values + p.b4
 
 
 def fused_patch_embed(neighborhood: torch.Tensor, params: PatchEmbedParams) -> torch.Tensor:
     """(B, G, S, 3) center-normalised patches -> (B, G, C_out) fp32 tokens.
 
-    Equals ``PatchEncoder.eval()`` in fp32 up to the order of the sums."""
+    Equals ``PatchEncoder.eval()`` in fp32 up to the order of the sums. Any
+    ``C_out`` is taken: where it is a multiple of 4 the kernel copies the
+    weights 16 bytes at a time, else element by element (slower, same result)."""
     _check(neighborhood, params)
     if not neighborhood.is_cuda:
         return fused_patch_embed_plain(neighborhood, params)
@@ -131,6 +136,9 @@ def fused_patch_embed(neighborhood: torch.Tensor, params: PatchEmbedParams) -> t
     out_dim = params.w4.shape[-1]
     x = neighborhood.to(torch.float32).contiguous()
     p = [t.to(torch.float32).contiguous() for t in params]
+    # the kernel reads parameters up to sixteen bytes at a time: a view that starts
+    # elsewhere is copied
+    p = [t.clone() if t.data_ptr() % 16 else t for t in p]
     out = torch.empty((batch, num_groups, out_dim), dtype=torch.float32, device=x.device)
     total = batch * num_groups
     if total and out_dim:

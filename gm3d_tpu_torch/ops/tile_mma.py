@@ -1,4 +1,5 @@
-"""The tensor-core tile product of the attention kernels, in plain PyTorch.
+"""The tensor-core tile product of the attention and patch-embed kernels, in
+plain PyTorch.
 
 ``csrc/tile_mma.cuh`` multiplies on the H100's tensor cores, whose fp32 path
 is TF32: operands keep 10 explicit mantissa bits (three decimal digits), the
@@ -88,7 +89,8 @@ def fragment_owner(warp: int, lane: int, reg: int) -> tuple[int, int]:
 
 
 def tile_product(a: torch.Tensor, b: torch.Tensor, shared_a: bool = False,
-                 shared_b: bool = False, chain: bool = False) -> torch.Tensor:
+                 shared_b: bool = False, chain: bool = False,
+                 wide_a: bool = False) -> torch.Tensor:
     """One (M, K) x (K, N) product, M, N <= 64, by one block of the tile
     product (fp32 out). ``a`` and ``b`` are fp32 or bf16 views of any strides:
     a transposed view costs no copy. ``shared_a`` / ``shared_b`` first copy
@@ -97,7 +99,11 @@ def tile_product(a: torch.Tensor, b: torch.Tensor, shared_a: bool = False,
     ``chain`` (contiguous fp32 rows of k only) sums all of K through one chain
     of ``mma`` accumulators, which round toward zero at every link; the
     kernels sum each 32-deep tile from zero and add the tiles in plain fp32.
-    CPU tensors take the plain version."""
+    ``wide_a`` is the patch embed's form (fp32, K a multiple of 32 up to 512,
+    ``b`` with unit stride along its columns, say a slice of columns of an
+    (in, out) weight): ``a`` goes into a (64, K + 8) shared-memory buffer and
+    is multiplied from there, and the kernel's staging room holds nothing but
+    ``b``'s two panels. CPU tensors take the plain version."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"expected (M, K) and (K, N), got {tuple(a.shape)} and {tuple(b.shape)}")
     (m, k), n = a.shape, b.shape[1]
@@ -106,6 +112,10 @@ def tile_product(a: torch.Tensor, b: torch.Tensor, shared_a: bool = False,
     if a.device != b.device:
         raise ValueError(f"a on {a.device} but b on {b.device}")
     shared = shared_a or shared_b
+    if wide_a and (shared or chain or a.dtype != torch.float32 or k % 32 or k > 512
+                   or b.stride(1) != 1):
+        raise ValueError("the wide form is built for fp32, K a multiple of 32 up to 512, and "
+                         "b with unit stride along its columns; it excludes the other forms")
     if chain and (a.dtype != torch.float32 or shared or a.stride(1) != 1 or b.stride(0) != 1):
         raise ValueError("the chained sum is built for fp32 operands in device memory "
                          "with unit stride along k only")
@@ -120,7 +130,7 @@ def tile_product(a: torch.Tensor, b: torch.Tensor, shared_a: bool = False,
         rc = lib.gm3d_tile_mma_test(
             a.data_ptr(), a.stride(0), a.stride(1), m, b.data_ptr(), b.stride(0), b.stride(1),
             n, k, out.data_ptr(), int(a.dtype == torch.bfloat16),
-            int(shared_a) + 2 * int(shared_b), int(chain),
+            4 if wide_a else int(shared_a) + 2 * int(shared_b), int(chain),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "tile_product")
     tile_product.launches += 1

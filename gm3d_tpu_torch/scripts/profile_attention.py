@@ -6,7 +6,9 @@ Three measurements of ``csrc/fused_attention.cu`` through its C entry points
 (fp32, D 384, 6 heads; median ms by CUDA events), one JSON line each:
 
   mma         ``cuobjdump -sass`` of the built library: tensor-core (HMMA)
-              instructions in each attention kernel, none anywhere else
+              instructions in each kernel (the attention and patch-embed
+              kernels and the tile product's unit test have them, FPS and KNN
+              none)
   batch       forward and backward at L 64, 39, 25 and B 16, 132, 256. One
               block works on one cloud, so B 16 is the time of a block that
               has its SM to itself, B 132 of one block on every SM, and B 256
