@@ -10,9 +10,14 @@ Phases, each printing one JSON line when it ends:
   env         card name and power limit, torch / CUDA / nvcc versions
   build       compiles ``gm3d_tpu_torch/csrc/*.cu`` and loads the library
   kernels     every kernel against its plain PyTorch version on the card
-              (indices must be EQUAL), the tensor-core tile product of the
-              attention and patch-embed kernels against float64, then times at
-              the main paths' shapes
+              (indices must be EQUAL; KNN with the count of queries that
+              overflowed its candidate buffer, 0 wherever the data are
+              standard-normal and k <= 32), the tensor-core tile product of
+              the attention and patch-embed kernels against float64, then
+              times at the main paths' shapes (FPS and KNN: ``ms`` one call
+              through the wrapper, as for every kernel, and ``graph_ms`` from
+              CUDA graphs, since their launches are shorter than the
+              wrapper's host time)
   serve       exports the full-width PointTransformer classifier (random
               weights from a seed) through the export CLI, serves it over
               HTTP with dynamic batching, checks the answers against the
@@ -60,8 +65,10 @@ from gm3d_tpu_torch.models.blocks import PatchEncoder  # noqa: E402
 from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from gm3d_tpu_torch.ops import patch_embed as pe  # noqa: E402
 from gm3d_tpu_torch.ops import tile_mma as tm  # noqa: E402
+from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS  # noqa: E402
 from gm3d_tpu_torch.ops.fps import fps_gather, fps_indices, fps_indices_torch  # noqa: E402
-from gm3d_tpu_torch.ops.knn import knn_indices, knn_indices_torch  # noqa: E402
+from gm3d_tpu_torch.ops.knn import (knn_indices, knn_indices_torch, knn_overflow_count,  # noqa: E402
+                                    knn_select_emulated)
 from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
 from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
@@ -111,6 +118,20 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 10) -> float:
+    """Device time of one ``fn()`` in ms: ``launches`` calls captured in a CUDA
+    graph and replayed, so that the host's own time for each call (the
+    wrapper's checks, allocations and the launch through ``ctypes``, tens of
+    microseconds) does not leave the card idle between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay) / launches
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -474,7 +495,13 @@ def phase_kernels() -> list[dict]:
                  ("serving x2", cloud(256, 1024), 64),
                  ("in-graph 8192->1024", cloud(32, 8192), 1024),
                  ("ragged N=200", cloud(3, 200), 24),
-                 ("duplicated points", torch.from_numpy(_grid_cloud(rng, 4, 512, 128)).to(DEV), 96)]
+                 ("duplicated points", torch.from_numpy(_grid_cloud(rng, 4, 512, 128)).to(DEV), 96),
+                 ("M2AE 2048->512", cloud(32, 2048), 512),
+                 ("finetune 8192->1200", cloud(32, 8192), 1200),
+                 ("N=20 < 32, n=30 > N", cloud(3, 20), 30),
+                 ("all-identical points", torch.full((2, 100, 3), 0.5, device=DEV), 16),
+                 ("ModelNet40 raw 10000->1024 (points in shared memory)", cloud(8, 10000), 1024),
+                 (f"largest cloud {FPS_MAX_POINTS}->64", cloud(2, FPS_MAX_POINTS), 64)]
     fps_err = 0
     for name, pts, n in fps_cases:
         got = fps_indices(pts, n)
@@ -494,25 +521,63 @@ def phase_kernels() -> list[dict]:
     tie = torch.from_numpy(_grid_cloud(rng, 4, 512, 128)).to(DEV)
     serve_ref = cloud(SERVE_BATCH, NPOINTS)
     serve_centers = fps_gather(serve_ref, fps_indices(serve_ref, NUM_GROUP))
-    knn_cases = [("serving (queries = FPS centers)", serve_ref, serve_centers, GROUP_SIZE),
-                 ("serving x2", *knn_case(cloud(256, 1024), 64), 32),
-                 ("M2AE scale 0", *knn_case(cloud(8, 2048), 512), 16),
-                 ("ragged N=300", cloud(2, 300), cloud(2, 100), 7),
-                 ("N=8192", *knn_case(cloud(4, 8192), 64), 32),
-                 ("ties", *knn_case(tie, 96), 24)]
+    same = torch.full((2, 256, 3), -0.25, device=DEV)
+    # the same kind of cloud in the orders real inputs can come in: FPS order
+    # (as FPS-cached datasets store them) and a scan order (z, then y in
+    # slabs of a quarter, then x); the candidate counts depend on the order
+    base = cloud(8, NPOINTS)
+    fps_ordered = fps_gather(base, fps_indices(base, NPOINTS))
+    scan = base.double()
+    scan = (scan[..., 2] * 4).floor() * 1e4 + (scan[..., 1] * 4).floor() * 1e2 + scan[..., 0]
+    scan_ordered = fps_gather(base, scan.argsort(dim=1))
+    ordered = {}
+    for name, ref in (("FPS-ordered cloud", fps_ordered), ("scan-ordered cloud", scan_ordered)):
+        ordered[name] = (ref, fps_gather(ref, fps_indices(ref, NUM_GROUP)))
+    # (name, ref, query, k, standard-normal): on standard-normal clouds in
+    # random order with k <= 32 the kernel's threshold leaves fewer candidates
+    # than its 128-entry buffer holds, so none of those may take the k-round
+    # selection; identical points always do
+    knn_cases = [("serving (queries = FPS centers)", serve_ref, serve_centers, GROUP_SIZE, True),
+                 ("serving x2", *knn_case(cloud(256, 1024), 64), 32, True),
+                 ("M2AE scale 0", *knn_case(cloud(8, 2048), 512), 16, True),
+                 ("ragged N=300", cloud(2, 300), cloud(2, 100), 7, True),
+                 ("N=4096 (cloud staged, 9 warps)", *knn_case(cloud(4, 4096), 64), 32, True),
+                 ("N=8192 (cloud read from L2)", *knn_case(cloud(4, 8192), 64), 32, True),
+                 ("N=16384 (cloud read from L2)", *knn_case(cloud(2, 16384), 64), 32, True),
+                 ("ties", *knn_case(tie, 96), 24, False),
+                 ("all-identical points", same, same[:, :16].contiguous(), 32, False),
+                 ("N=20 < 32", cloud(3, 20), cloud(3, 8), 5, True),
+                 ("k=1", *knn_case(cloud(SERVE_BATCH, NPOINTS), 64), 1, True),
+                 ("k=N=40", *knn_case(cloud(2, 40), 16), 40, True),
+                 ("k=N=100", *knn_case(cloud(2, 100), 16), 100, True),
+                 ("k=N=200 > 128, the buffer", *knn_case(cloud(2, 200), 16), 200, True),
+                 ("k=48", *knn_case(cloud(8, 1024), 64), 48, True),
+                 ("segmentation: k 3, 2048 queries, 128 references", cloud(4, 128),
+                  cloud(4, 2048), 3, True),
+                 *((name, ref, query, GROUP_SIZE, False) for name, (ref, query) in ordered.items())]
     knn_err = 0.0
-    for name, ref, query, k in knn_cases:
+    for name, ref, query, k, normal in knn_cases:
+        before = knn_overflow_count(DEV)
         gd, gi = knn_indices(ref, query, k, return_dist=True)
-        torch.cuda.synchronize()
+        overflow = knn_overflow_count(DEV) - before
         wd, wi = knn_indices_torch(ref, query, k, return_dist=True)
         torch.cuda.synchronize()
         if not torch.equal(gi, wi):
             raise AssertionError(f"knn kernel disagrees with its plain version at {name}: "
                                  f"{int((gi != wi).sum())} of {gi.numel()} indices")
         torch.testing.assert_close(gd, wd, rtol=1e-6, atol=0.0)
+        if normal and k <= 32:
+            check(overflow == 0, f"knn at {name}: {overflow} queries overflowed the candidates")
+        if ref is same:
+            check(overflow == query.shape[0] * query.shape[1],
+                  f"knn at {name}: {overflow} overflowing queries, expected all")
         knn_err = max(knn_err, float((gd - wd).abs().max()))
         checks.append({"kernel": "knn", "case": name,
-                       "shape": [ref.shape[0], ref.shape[1], query.shape[1], k], "equal": True})
+                       "shape": [ref.shape[0], ref.shape[1], query.shape[1], k],
+                       "overflow": overflow, "equal": True})
+        if name in ordered:
+            c = knn_select_emulated(ref, query, k)[2]["candidates"].double()
+            checks[-1]["candidates_mean_max"] = [float(c.mean()), int(c.max())]
     try:
         knn_indices(cloud(1, 8), cloud(1, 4), 9)
     except ValueError:
@@ -524,14 +589,18 @@ def phase_kernels() -> list[dict]:
     pts = cloud(SERVE_BATCH, NPOINTS)
     b, n, g, k = SERVE_BATCH, NPOINTS, NUM_GROUP, GROUP_SIZE
     fps_ms = cuda_ms(lambda: fps_indices(pts, g))
+    fps_graph_ms = graph_ms(lambda: fps_indices(pts, g))
     fps_plain = cuda_ms(lambda: fps_indices_torch(pts, g), runs=20, warmup=1)
     # per round and point: 3 subtractions, 3 products, 2 sums, 1 min, 1 compare
     fps_bound, fps_by = bound(b * n * 12 + b * g * 4, 10.0 * b * (g - 1) * n)
     centers = pts[:, :g].contiguous()
     knn_ms = cuda_ms(lambda: knn_indices(pts, centers, k))
+    knn_graph_ms = graph_ms(lambda: knn_indices(pts, centers, k))
     knn_plain = cuda_ms(lambda: knn_indices_torch(pts, centers, k), runs=20, warmup=1)
-    knn_lib = cuda_ms(lambda: torch.topk(torch.cdist(centers, pts), k, dim=-1,
-                                         largest=False, sorted=True))
+
+    def knn_library():
+        return torch.topk(torch.cdist(centers, pts), k, dim=-1, largest=False, sorted=True)
+    knn_lib, knn_lib_graph = cuda_ms(knn_library), graph_ms(knn_library)
     # per (query, point) pair: 8 flops for q2 - 2*cross + r2 with r2 and q2
     # given, and at least one comparison to select; r2 once per point (5)
     knn_bound, knn_by = bound(b * n * 12 + b * g * 12 + b * g * k * 8,
@@ -540,11 +609,13 @@ def phase_kernels() -> list[dict]:
         {"name": "fps", "route": "cuda", "source": "gm3d_tpu_torch/csrc/fps.cu",
          "replaces": "gm3d_tpu/ops/fps.py:170", "shape": [b, n, g],
          "max_abs_err": fps_err, "ms": fps_ms, "plain_ms": fps_plain,
-         "bound_ms": fps_bound, "bound_by": fps_by, "library_ms": None},
+         "bound_ms": fps_bound, "bound_by": fps_by, "library_ms": None,
+         "graph_ms": fps_graph_ms},
         {"name": "knn", "route": "cuda", "source": "gm3d_tpu_torch/csrc/knn.cu",
          "replaces": "gm3d_tpu/ops/knn.py:76", "shape": [b, n, g, k],
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain,
-         "bound_ms": knn_bound, "bound_by": knn_by, "library_ms": knn_lib},
+         "bound_ms": knn_bound, "bound_by": knn_by, "library_ms": knn_lib,
+         "graph_ms": knn_graph_ms, "library_graph_ms": knn_lib_graph},
     ]
     # other shapes the package meets (not on the main path; times only)
     big = cloud(32, 8192)

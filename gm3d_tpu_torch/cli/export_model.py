@@ -26,6 +26,7 @@ import torch
 from gm3d_tpu_torch.ckpt import load_torch_file
 from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config
 from gm3d_tpu_torch.config import build_model_from_cfg
+from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS
 from gm3d_tpu_torch.serve.export import save_artifact
 from gm3d_tpu_torch.utils import get_logger
 from gm3d_tpu_torch.utils.device import dtype_name, resolve_device
@@ -63,6 +64,15 @@ def _model_cfg(args, cfg) -> tuple[str, dict]:
     return want, dict(cfg["model"])
 
 
+def check_input_points(n_input: int, npoints: int, device: torch.device) -> None:
+    """Refuses, at export time, an input larger than the FPS kernel takes
+    where the forward would run it on the card."""
+    if device.type == "cuda" and n_input > npoints and n_input > FPS_MAX_POINTS:
+        raise ValueError(
+            f"--input_points {n_input}: the forward's FPS to {npoints} points runs "
+            f"on the card, whose kernel takes at most {FPS_MAX_POINTS} points a cloud")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> str:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -71,6 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     dtype = compute_dtype(args)
     npoints = cfg.get("npoints", 1024)
     n_input = args.input_points or npoints
+    check_input_points(n_input, npoints, device)
 
     model_name, model_cfg = _model_cfg(args, cfg)
     model = build_model_from_cfg(model_cfg, dtype=dtype)

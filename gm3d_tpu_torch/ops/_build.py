@@ -121,7 +121,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.gm3d_fps.argtypes = [p, p, i, i, i, i, p]
     lib.gm3d_fps.restype = i
-    lib.gm3d_knn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.gm3d_knn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.gm3d_knn.restype = i
     lib.gm3d_patch_embed.argtypes = [p] * 14 + [i, i, i, i, p]
     lib.gm3d_patch_embed.restype = i

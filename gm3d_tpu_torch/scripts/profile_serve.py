@@ -1,16 +1,24 @@
 """Where one served batch spends its time on the GPU.
 
     python3 -m gm3d_tpu_torch.scripts.profile_serve [--bf16] [--batch 128]
+        [--input_points N] [--csrc DIR]
 
 Exports the full-width PointTransformer classifier with weights drawn from a
 seed, loads it with :class:`ServingModel` on the GPU and prints JSON lines:
 
-  stages    CUDA-event time of each stage of the forward (grouping with its
-            two kernels, patch embed, positional embed, encoder blocks, head),
-            median over the batches
+  stages    CUDA-event time of each stage of the forward (with
+            ``--input_points`` above the model's 1024, the FPS down to 1024
+            that begins the forward; grouping with its two kernels, patch
+            embed, positional embed, encoder blocks, head), median over the
+            batches
   profiler  ``torch.profiler`` over a steady window: the device's busy share
             (sum of kernel time over the window's wall time) and the kernels
             that take most of it, by name
+  compare   with ``--csrc DIR``: the whole forward and its FPS and grouping
+            stages with the FPS and KNN kernels of DIR (another copy of the
+            sources, the parent commit's, say) and with the package's, in
+            turns (DIR, package, package, DIR). DIR's kernels are built on
+            their own and put in the package's place for this process only
 
 It needs a CUDA device and fails without one; it measures, asserts nothing.
 """
@@ -18,17 +26,21 @@ It needs a CUDA device and fails without one; it measures, asserts nothing.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import os
 import statistics
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from gm3d_tpu_torch.cli import export_model
+from gm3d_tpu_torch.ops.fps import fps
 from gm3d_tpu_torch.ops.group import group_points
 from gm3d_tpu_torch.serve.runner import ServingModel
 
@@ -81,11 +93,51 @@ def _event_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+class _OtherKernels:
+    """The FPS and KNN kernels built from another copy of the sources, put in
+    the package's place (the names the forward calls them by) inside a
+    ``with`` block."""
+
+    def __init__(self, csrc: Path, tmp: str):
+        from gm3d_tpu_torch.scripts.tune_kernels import Kernels
+
+        self.kern = Kernels(csrc, Path(tmp) / "other_csrc").wait()
+        self.fps_mod = importlib.import_module("gm3d_tpu_torch.ops.fps")
+        self.group_mod = importlib.import_module("gm3d_tpu_torch.ops.group")
+
+    def fps_indices(self, xyz, n):
+        launch, out = self.kern.fps(xyz.contiguous(), n, self.kern.fps_default(*xyz.shape[:2]))
+        launch()
+        return out
+
+    def knn_indices(self, ref, query, k):
+        query = query.contiguous()
+        launch, (_, idx, _) = self.kern.knn(ref.contiguous(), query, k, self.kern.knn_default(
+            ref.shape[0], ref.shape[1], query.shape[1], k))
+        launch()
+        return idx
+
+    def __enter__(self):
+        self.saved = (self.fps_mod.fps_indices, self.group_mod.fps_indices,
+                      self.group_mod.knn_indices)
+        self.fps_mod.fps_indices = self.group_mod.fps_indices = self.fps_indices
+        self.group_mod.knn_indices = self.knn_indices
+
+    def __exit__(self, *exc):
+        self.fps_mod.fps_indices, self.group_mod.fps_indices, self.group_mod.knn_indices = \
+            self.saved
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--input_points", type=int, default=None,
+                    help="points a cloud has at the artifact's input (default: the model's)")
+    ap.add_argument("--csrc", type=Path, default=None,
+                    help="another copy of the CUDA sources whose FPS and KNN kernels are "
+                         "timed in turns with the package's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -98,7 +150,8 @@ def main() -> None:
         art = export_model.main(
             ["--config", CONFIG, "--out", os.path.join(tmp, "m.gm3dx"), "--seed", "0",
              "--export_batch", str(args.batch), "--device", "cuda"]
-            + (["--bf16"] if args.bf16 else []))
+            + (["--bf16"] if args.bf16 else [])
+            + (["--input_points", str(args.input_points)] if args.input_points else []))
         serving = ServingModel(art, device="cuda")
     clouds = np.random.default_rng(0).standard_normal(
         (args.batch, serving.npoints, 3)).astype(np.float32)
@@ -108,16 +161,42 @@ def main() -> None:
     torch.cuda.synchronize()
 
     model = serving.module
+    npoints = serving.manifest["npoints"]
+    x_model = fps(x, npoints) if serving.npoints > npoints else x
+
+    def front_stages() -> dict:
+        with torch.inference_mode():
+            out = {"group (fps + knn + gather)": _event_ms(
+                lambda: group_points(x_model, model.num_group, model.group_size), args.runs)}
+            if serving.npoints > npoints:
+                out[f"fps {serving.npoints} -> {npoints} + gather"] = _event_ms(
+                    lambda: fps(x, npoints), args.runs)
+        return out
+
     timer = _StageTimer({"patch_embed": model.encoder, "pos_embed": model.pos_embed,
                          "blocks": model.blocks, "head": model.cls_head_finetune})
     total = _event_ms(lambda: serving.device_call(x), args.runs)
     stages = timer.close()
-    with torch.inference_mode():
-        stages["group (fps + knn + gather)"] = _event_ms(
-            lambda: group_points(x, model.num_group, model.group_size), args.runs)
+    stages.update(front_stages())
     stages["other"] = total - sum(stages.values())
     print(json.dumps({"what": "stages", "gpu": gpu, "dtype": dtype, "batch": args.batch,
-                      "forward_ms": total, "stage_ms": stages}), flush=True)
+                      "input_points": serving.npoints, "forward_ms": total,
+                      "stage_ms": stages}), flush=True)
+
+    if args.csrc is not None:
+        name = str(args.csrc)
+        runs = {"package": [], name: []}
+        with tempfile.TemporaryDirectory() as tmp:
+            other = _OtherKernels(args.csrc.resolve(), tmp)
+            for which in (name, "package", "package", name):
+                with other if which == name else contextlib.nullcontext():
+                    for _ in range(3):
+                        serving.device_call(x)
+                    runs[which].append({
+                        "forward_ms": _event_ms(lambda: serving.device_call(x), args.runs),
+                        **front_stages()})
+        print(json.dumps({"what": "compare", "gpu": gpu, "dtype": dtype, "batch": args.batch,
+                          "input_points": serving.npoints, "runs": runs}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
