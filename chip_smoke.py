@@ -29,6 +29,12 @@ Phases, each printing one JSON line when it ends:
               counts, parameter / EMA movement and the frozen coordinate head,
               compares step 1 with the same step through the unfused modules,
               and prints clouds per second of the step
+  pretrain_cli  runs the pretrain CLI (``gm3d_tpu_torch.cli.pretrain.main``,
+              in this process) for two epochs of four full-width steps on
+              synthetic clouds with a random teacher, checks its ``log.txt``
+              (keys, finite values, the schedule's learning rate) and the
+              kernel launches of its eight steps, and prints its clouds per
+              second beside the bare step's
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
@@ -60,6 +66,7 @@ if not torch.cuda.is_available():
                      "torch.cuda.is_available() is False")
 
 from gm3d_tpu_torch.cli import export_model  # noqa: E402
+from gm3d_tpu_torch.cli import pretrain as pretrain_cli  # noqa: E402
 from gm3d_tpu_torch.ops import _build  # noqa: E402
 from gm3d_tpu_torch.models.blocks import PatchEncoder  # noqa: E402
 from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
@@ -74,6 +81,7 @@ from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
 from gm3d_tpu_torch.train.optim import GM3D_COORD_HEAD  # noqa: E402
 from gm3d_tpu_torch.train.pretrain import METRIC_KEYS, make_gm3d_train_step  # noqa: E402
+from gm3d_tpu_torch.train.schedules import cosine_warmup_schedule, effective_lr  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
@@ -878,13 +886,61 @@ def phase_train(env: dict) -> dict:
            "largest_parameter_move": max(moved.values()),
            "largest_ema_move": max(ema_moved.values())}
     emit(res)
-    emit({"train_step": {"clouds_per_s": TRAIN_BATCH / step_wall * 1e3,
+    clouds_per_s = TRAIN_BATCH / step_wall * 1e3
+    emit({"train_step": {"clouds_per_s": clouds_per_s,
                          "ms_per_step_cuda_events": step_ms, "ms_per_step_wall": step_wall,
                          "batch": TRAIN_BATCH, "dtype": "float32", "gpu": env["gpu"]}})
+    return {"launches": launches, "clouds_per_s": clouds_per_s}
+
+
+# the CLI's run: 1024 synthetic clouds in batches of 256, two epochs of 4 steps
+CLI_SAMPLES, CLI_EPOCHS = 1024, 2
+CLI_STEPS_PER_EPOCH = CLI_SAMPLES // TRAIN_BATCH
+CLI_RECORD_KEYS = set(METRIC_KEYS) | {"epoch", "time", "lr", "steps", "clouds_per_sec"}
+
+
+def phase_pretrain_cli(env: dict, trained: dict | None) -> dict:
+    """The pretrain CLI, as a user runs it, for a few full-width steps."""
+    with tempfile.TemporaryDirectory() as out:
+        pp.reset_launches()  # the CLI's path: every launch count starts from 0 here
+        records = pretrain_cli.main([
+            "--config", os.path.join(ROOT, "configs", "pointmae", "config.yaml"),
+            "--synthetic", "--synthetic_samples", str(CLI_SAMPLES),
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(CLI_EPOCHS),
+            "--learn_feature_loss", "dino", "--output_dir", out])
+        launches = pp.read_launches()
+        with open(os.path.join(out, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        with open(os.path.join(out, "pretrain.log")) as f:
+            text_log = f.read()
+    check(log == records, "log.txt differs from the records main() returned")
+    check([r["epoch"] for r in log] == list(range(CLI_EPOCHS)), log)
+    # the JAX CLI's schedule at its defaults: blr 1e-3, 40 warm-up epochs
+    sched = cosine_warmup_schedule(effective_lr(1e-3, TRAIN_BATCH), 0.0, 40, CLI_EPOCHS,
+                                   CLI_STEPS_PER_EPOCH)
+    for r in log:
+        check(set(r) == CLI_RECORD_KEYS, f"log.txt keys {sorted(r)}")
+        check(r["steps"] == CLI_STEPS_PER_EPOCH, r)
+        check(all(np.isfinite(r[k]) for k in CLI_RECORD_KEYS), r)
+        want_lr = sched(CLI_STEPS_PER_EPOCH * (r["epoch"] + 1))
+        check(abs(r["lr"] - want_lr) <= 1e-12 * want_lr, (r["lr"], want_lr))
+        check(f"epoch {r['epoch']}: loss=" in text_log, "pretrain.log lacks an epoch line")
+    steps = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
+    want_launches = {k: v * steps for k, v in LAUNCHES_PER_STEP.items()}
+    check(launches == want_launches, f"launches {launches}, expected {want_launches}")
+    cli_rate = log[-1]["clouds_per_sec"]
+    res = {"phase": "pretrain_cli", "epochs": CLI_EPOCHS, "steps": steps,
+           "batch": TRAIN_BATCH, "launches": launches, "records": log,
+           "cli_clouds_per_sec_last_epoch": cli_rate}
+    if trained is not None:
+        res["train_step_clouds_per_s"] = trained["clouds_per_s"]
+        res["cli_over_step"] = cli_rate / trained["clouds_per_s"]
+    res["gpu"] = env["gpu"]
+    emit(res)
     return {"launches": launches}
 
 
-PHASES = ("env", "build", "kernels", "serve", "throughput", "train")
+PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli")
 
 
 def main() -> None:
@@ -907,6 +963,7 @@ def main() -> None:
         if "throughput" in phases:
             phase_throughput(tmp, served["artifact"])
     trained = phase_train(env) if "train" in phases else None
+    cli = phase_pretrain_cli(env, trained) if "pretrain_cli" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -916,7 +973,9 @@ def main() -> None:
             kern["launches_train"] = trained["launches"][kern["name"]]
         else:
             kern["launches"] = trained["launches"][kern["name"]]
-        check(kern["launches"] > 0, f"{kern['name']} was never launched on its path")
+        kern["launches_pretrain_cli"] = cli["launches"][kern["name"]]
+        check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
+              f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})
     print(env["gpu"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

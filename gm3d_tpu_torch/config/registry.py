@@ -2,7 +2,8 @@
 schemas under ``configs/`` onto the modules of this package.
 
 Port of ``gm3d_tpu/config/registry.py`` for the models ported so far:
-``PointTransformer``, ``Point_MAE`` and the GM3D student."""
+``PointTransformer``, ``Point_MAE`` and the GM3D student. The dataset readers
+of ``data/datasets.py`` register in ``DATASETS`` under the reference ``NAME``."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ class Registry:
 
 
 MODELS = Registry("models")
+DATASETS = Registry("datasets")
 
 
 @MODELS.register_module("Point_MAE")

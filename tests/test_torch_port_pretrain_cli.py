@@ -1,0 +1,330 @@
+"""The port's pretrain CLI against the JAX package's (CPU).
+
+``gm3d_tpu_torch.cli.pretrain`` and ``gm3d_tpu.cli.pretrain`` run the same
+flags for two epochs on the same synthetic clouds, with small models (the
+step test's widths, stochastic depth 0) patched into both CLIs. Both start
+from the JAX CLI's own initialisation (``init`` with keys 1 and 2), carried
+across with ``load_flax_variables``, and the port is handed the draws of the
+JAX CLI's key sequence (``rng, key = split(rng)`` a step, then the step's own
+split). Then the two ``log.txt`` files must have the same keys (less the JAX
+CLI's ``val_svm_acc``, which comes with the SVM probe), equal ``epoch`` and
+``steps``, ``lr`` to ``rtol=1e-6`` and the six epoch means to ``rtol=2e-4``,
+the step test's tolerance.
+
+Each CLI is called in this process, through its module's ``main()`` after
+the patch (``cli_harness.run_cli`` reloads the module and would drop it).
+"""
+
+import functools
+import json
+import math
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from cli_harness import _reset_gm3d_loggers
+
+import gm3d_tpu.cli.pretrain as jcli
+from gm3d_tpu.data.datasets import DataLoader as JDataLoader
+from gm3d_tpu.data.datasets import SyntheticClouds as JSyntheticClouds
+from gm3d_tpu.masking import gm3d_num_mask as jgm3d_num_mask
+from gm3d_tpu.masking import keep_ratio_schedule as jkeep_ratio_schedule
+from gm3d_tpu.models import GM3DStudent as JGM3DStudent
+from gm3d_tpu.models import PointMAE as JPointMAE
+from gm3d_tpu.train import schedules as jschedules
+from gm3d_tpu.utils import MetricLogger as JMetricLogger
+from gm3d_tpu.utils.meters import AverageMeter as JAverageMeter
+from gm3d_tpu_torch.ckpt.torch_import import (
+    GM3D_STUDENT_MAP,
+    POINT_MAE_MAP,
+    load_flax_variables,
+)
+from gm3d_tpu_torch.cli import pretrain as cli
+from gm3d_tpu_torch.models import GM3DStudent, PointMAE
+from gm3d_tpu_torch.utils import AverageMeter, MetricLogger
+from gm3d_tpu_torch.utils.debug import check_finite_loss
+from gm3d_tpu_torch.utils.pipeline import DeferredMetrics
+
+SMALL = dict(trans_dim=48, depth=2, num_heads=2, group_size=8, num_group=16, encoder_dims=48,
+             decoder_depth=1, decoder_num_heads=2, drop_path_rate=0.0)
+BATCH, SAMPLES, EPOCHS, NPOINTS = 4, 8, 2, 1024
+# blr 0.064 at batch 4 is a learning rate of 1e-3 (the step test's); one
+# warm-up epoch puts both branches of the schedule into the run; one device
+# (the tests' JAX sees eight CPU devices)
+FLAGS = ["--config", "configs/pointmae/config.yaml", "--synthetic",
+         "--batch_size", str(BATCH), "--synthetic_samples", str(SAMPLES),
+         "--epochs", str(EPOCHS), "--steps_per_dispatch", "1", "--warmup_epochs", "1",
+         "--blr", "0.064", "--val_freq", "100", "--num_devices", "1"]
+METRICS = ("loss", "loss_recon", "loss_mse", "loss_chfr", "loss_learn", "grad_norm")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_loggers():
+    """Each CLI configures the "gm3d" logger once per process: leave it
+    unconfigured for whatever runs next in this process."""
+    yield
+    _reset_gm3d_loggers()
+
+
+def _example():
+    """The JAX CLI's example batch: the first of its train loader."""
+    loader = JDataLoader(JSyntheticClouds(SAMPLES, NPOINTS, seed=1), BATCH, seed=0)
+    return jnp.asarray(next(iter(loader)))
+
+
+def _init_variables(mode):
+    """What the JAX CLI's ``init`` gives its student (key 1) and teacher (key 2)."""
+    example = _example()
+    student = JGM3DStudent(mode=mode, **SMALL)
+    num_mask = jgm3d_num_mask(student.num_group, 0.6)
+    mask0 = jnp.zeros((2, student.num_group), bool).at[:, :num_mask].set(True)
+    svars = student.init(jax.random.key(1), example[:2], mask0, num_mask)
+    tvars = JPointMAE(**SMALL).init(jax.random.key(2), example[:2], mask0, num_mask)
+    return (jax.tree.map(np.asarray, svars), jax.tree.map(np.asarray, tvars))
+
+
+def _jax_draws(seed):
+    """The port's ``step_draws``, replaced: what the JAX CLI's step draws, in
+    its key order (``gm3d_tpu/cli/pretrain.py:629`` then the step's split)."""
+    state = {"rng": jax.random.key(seed)}
+
+    def draws(generator, batch, num_group):
+        state["rng"], key = jax.random.split(state["rng"])
+        r_aug, r_mask, _, _ = jax.random.split(key, 4)
+        r_scale, r_shift = jax.random.split(r_aug)
+        out = {"scale": jax.random.uniform(r_scale, (batch, 1, 3), minval=2.0 / 3.0,
+                                           maxval=3.0 / 2.0),
+               "shift": jax.random.uniform(r_shift, (batch, 1, 3), minval=-0.2, maxval=0.2),
+               "noise": jax.random.uniform(r_mask, (batch, num_group))}
+        return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+    return draws
+
+
+def _log(out_dir):
+    with open(out_dir / "log.txt") as f:
+        return [json.loads(line) for line in f]
+
+
+def _run_jax(monkeypatch, out_dir, mode_flags):
+    monkeypatch.setattr(jcli, "GM3DStudent", functools.partial(JGM3DStudent, **SMALL))
+    monkeypatch.setattr(jcli, "build_teacher",
+                        lambda args, cfg, dtype: JPointMAE(**SMALL, dtype=dtype))
+    monkeypatch.setattr(sys, "argv", ["pretrain", *FLAGS, *mode_flags,
+                                      "--output_dir", str(out_dir)])
+    _reset_gm3d_loggers()
+    jcli.main()
+    return _log(out_dir)
+
+
+def _run_port(monkeypatch, out_dir, mode_flags, svars, tvars):
+    def student(args, mode, dtype):
+        return load_flax_variables(GM3DStudent(mode=mode, **SMALL), svars, GM3D_STUDENT_MAP)
+
+    def teacher(args, cfg, dtype):
+        return load_flax_variables(PointMAE(**SMALL), tvars, POINT_MAE_MAP)
+
+    monkeypatch.setattr(cli, "build_student", student)
+    monkeypatch.setattr(cli, "build_teacher", teacher)
+    monkeypatch.setattr(cli, "step_draws", _jax_draws(seed=0))
+    _reset_gm3d_loggers()
+    records = cli.main([*FLAGS, *mode_flags, "--device", "cpu", "--output_dir", str(out_dir)])
+    assert records == _log(out_dir)
+    return records
+
+
+@pytest.mark.parametrize("loss, mode", [("dino", "feature"), ("none", "usual")])
+def test_the_two_clis_agree(loss, mode, monkeypatch, tmp_path):
+    flags = ["--learn_feature_loss", loss]
+    want = _run_jax(monkeypatch, tmp_path / "jax", flags)
+    svars, tvars = _init_variables(mode)
+    got = _run_port(monkeypatch, tmp_path / "port", flags, svars, tvars)
+    assert len(got) == len(want) == EPOCHS
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(k for k in w if k != "val_svm_acc")
+        assert g["epoch"] == w["epoch"] and g["steps"] == w["steps"] == SAMPLES // BATCH
+        np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6)
+        for key in METRICS:
+            assert math.isfinite(g[key]), key
+            np.testing.assert_allclose(g[key], w[key], rtol=2e-4,
+                                       err_msg=f"{loss} epoch {g['epoch']} {key}")
+    # the warm-up's peak after epoch 0, the cosine's end after epoch 1
+    np.testing.assert_allclose([g["lr"] for g in got], [1e-3, 0.0], rtol=1e-6, atol=0)
+    assert (tmp_path / "port" / "pretrain.log").read_text().count("epoch 1: loss=") == 1
+    assert any((tmp_path / "port" / "tfboard").iterdir())
+
+
+def _small_models(monkeypatch):
+    gen = torch.Generator().manual_seed(0)
+
+    def student(args, mode, dtype):
+        model = GM3DStudent(mode=mode, **SMALL)
+        model.reset_parameters(gen)
+        return model
+
+    def teacher(args, cfg, dtype):
+        model = PointMAE(**SMALL)
+        model.reset_parameters(gen)
+        return model
+
+    monkeypatch.setattr(cli, "build_student", student)
+    monkeypatch.setattr(cli, "build_teacher", teacher)
+
+
+def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
+    """--blr inf makes the first update non-finite; the next step's loss is
+    NaN and the CLI exits with code 1, as the JAX CLI does
+    (``tests/test_cli_guards.py``)."""
+    _small_models(monkeypatch)
+    _reset_gm3d_loggers()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--config", "configs/pointmae/config.yaml", "--synthetic",
+                  "--learn_feature_loss", "ema", "--epochs", "2", "--batch_size", "4",
+                  "--synthetic_samples", "12", "--warmup_epochs", "0", "--blr", "inf",
+                  "--device", "cpu", "--output_dir", str(tmp_path)])
+    assert e.value.code == 1
+
+
+NOT_PORTED = [
+    ["--model_family", "pointmae"], ["--model_family", "m2ae"], ["--model_family", "m2ae_gm3d"],
+    ["--learn_feature_loss", "clip"], ["--classification"], ["--sync_probe"],
+    ["--student_variant", "legacy"], ["--accum_iter", "2"], ["--no-shared_opt"], ["--bf16"],
+    ["--quantize_ema"], ["--resume"], ["--save_steps", "10"], ["--profile_dir", "prof"],
+    ["--teacher_ckpt", "ckpt"], ["--num_devices", "2"], ["--native_loader"],
+]
+
+
+@pytest.mark.parametrize("flags", NOT_PORTED, ids=lambda f: " ".join(f))
+def test_flags_not_ported_yet_raise_and_name_their_item(flags, tmp_path):
+    _reset_gm3d_loggers()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d"):
+        cli.main(["--config", "configs/pointmae/config.yaml", "--synthetic", "--device", "cpu",
+                  "--output_dir", str(tmp_path), *flags])
+    assert not (tmp_path / "log.txt").exists()
+
+
+def test_the_cli_defaults_to_cuda_and_says_so(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--config", "configs/pointmae/config.yaml", "--synthetic",
+                  "--output_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_loaders_equal_the_jax_clis(tmp_path):
+    """``make_loaders`` on synthetic clouds: the same three loaders, the same
+    batches, as ``gm3d_tpu/cli/common.py::make_loaders``."""
+    from gm3d_tpu.cli.common import make_loaders as jmake_loaders
+    from gm3d_tpu_torch.cli.common import load_config, make_loaders
+
+    args = cli.parse_args(FLAGS + ["--num_workers", "2", "--seed", "3",
+                                   "--output_dir", str(tmp_path)])
+    cfg = load_config(args)
+    assert cfg["max_epoch"] == EPOCHS and cfg["total_bs"] == BATCH
+    mine, theirs = make_loaders(cfg, args), jmake_loaders(cfg, args)
+    # the SVM sets: at least 64 clouds, in batches of twice the train batch
+    assert [len(m) for m in mine] == [len(t) for t in theirs] == [2, 8, 8]
+    for m, t in zip(mine, theirs):
+        for got, want in zip(list(m), list(t)):
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(g, w)
+    assert mine[0].state() == theirs[0].state() == {"epoch": 1, "batch": 0}
+
+
+def test_the_cli_trains_on_shapenet_files(monkeypatch, tmp_path):
+    """Without ``--synthetic`` the train set is the config's ShapeNet-55
+    (here three tiny files the test writes); no ModelNet files are needed."""
+    import yaml
+
+    pc = tmp_path / "pc"
+    pc.mkdir()
+    names = [f"0269{i}-m{i}.npy" for i in range(4)]
+    for i, name in enumerate(names):
+        np.save(pc / name, np.random.default_rng(i).standard_normal((300, 3)).astype(np.float32))
+    (tmp_path / "train.txt").write_text("\n".join(names) + "\n")
+    with open("configs/pointmae/config.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["dataset"]["train"]["_base_"].update(DATA_PATH=str(tmp_path), PC_PATH=str(pc))
+    cfg["npoints"] = 256
+    cfg["dataset"]["train"]["others"]["npoints"] = 256
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    _small_models(monkeypatch)
+    records = cli.main(["--config", str(tmp_path / "cfg.yaml"), "--learn_feature_loss", "ema",
+                        "--epochs", "1", "--batch_size", "2", "--device", "cpu",
+                        "--output_dir", str(tmp_path / "out")])
+    assert len(records) == 1 and records[0]["steps"] == 2
+    assert all(math.isfinite(records[0][k]) for k in METRICS)
+
+
+def test_step_draws_come_from_the_generator():
+    one = cli.step_draws(torch.Generator().manual_seed(3), 5, 16)
+    two = cli.step_draws(torch.Generator().manual_seed(3), 5, 16)
+    assert {k: tuple(v.shape) for k, v in one.items()} == {
+        "scale": (5, 1, 3), "shift": (5, 1, 3), "noise": (5, 16)}
+    for key in one:
+        assert torch.equal(one[key], two[key])
+    assert 2.0 / 3.0 <= float(one["scale"].min()) and float(one["scale"].max()) < 1.5
+    assert -0.2 <= float(one["shift"].min()) and float(one["shift"].max()) < 0.2
+    assert 0.0 <= float(one["noise"].min()) and float(one["noise"].max()) < 1.0
+
+
+@pytest.mark.parametrize("loss, after_200", [("dino", False), ("dino", True), ("ema", False),
+                                             ("none", False)])
+def test_epoch_scalars_are_the_jax_clis(loss, after_200):
+    """``gm3d_tpu/cli/pretrain.py:532-552``, epoch by epoch."""
+    args = cli.parse_args(FLAGS + ["--learn_feature_loss", loss, "--after_epoch", "3"]
+                          + (["--after_200_epoch"] if after_200 else []))
+    epochs = 8
+    for epoch in range(epochs):
+        got = cli.epoch_scalars(args, epoch, epochs)
+        capped = after_200 or loss == "none"
+        w_mse, w_cd = ((13.889, 1.0) if loss == "none" else
+                       jschedules.loss_weights(epoch, 3, args.loss_multiply_by))
+        assert got == {"keep_ratio": jkeep_ratio_schedule(epoch, epochs, capped),
+                       "ema_decay": jschedules.ema_decay_schedule(epoch),
+                       "w_mse": w_mse, "w_cd": w_cd}
+    assert cli.student_mode(args) == ("usual" if loss == "none" else "feature")
+
+
+# ---------------------------------------------------------------------------
+# meters, the metrics pipeline and the NaN exit (copies of the JAX package's)
+
+
+def test_meters_equal_the_jax_meters():
+    mine, theirs = MetricLogger(), JMetricLogger()
+    values = np.random.default_rng(0).standard_normal((30, 2))
+    for a, b in values:
+        mine.update(loss=a, grad_norm=b)
+        theirs.update(loss=a, grad_norm=b)
+    assert mine.global_avgs() == theirs.global_avgs()
+    assert str(mine) == str(theirs)
+    assert mine.meters["loss"].count == 30
+    avg, javg = AverageMeter(["a", "b"]), JAverageMeter(["a", "b"])
+    for a, b in values:
+        avg.update([a, b])
+        javg.update([a, b])
+    assert avg.avg() == javg.avg() and avg.avg(1) == javg.avg(1)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_deferred_metrics_drain_in_order_depth_behind(depth):
+    drained = []
+    dm = DeferredMetrics(lambda x: drained.append(x), depth=depth)
+    for i in range(5):
+        dm.push(i)
+        assert drained == list(range(max(0, i + 1 - depth)))
+    dm.flush()
+    assert drained == list(range(5))
+
+
+def test_check_finite_loss_exits_with_code_1():
+    assert check_finite_loss(1.5)
+    assert not check_finite_loss(float("nan"), exit_on_nan=False)
+    with pytest.raises(SystemExit) as e:
+        check_finite_loss(float("inf"))
+    assert e.value.code == 1

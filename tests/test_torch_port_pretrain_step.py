@@ -83,15 +83,20 @@ def _clouds(seed):
     return np.random.default_rng(seed).standard_normal((B, N, 3)).astype(np.float32) * 0.5
 
 
-def _both(distill_mode="dino", steps=1):
-    jstudent, jteacher = JGM3DStudent(**SMALL), JPointMAE(**SMALL)
+def _both(distill_mode="dino", steps=1, mode="feature", frozen=True):
+    """``frozen``: the coordinate head is left out of the optimizer (both
+    sides' default, feature mode); ``False`` is the CLI's usual-mode choice,
+    ``frozen_modules=()``."""
+    jstudent, jteacher = JGM3DStudent(mode=mode, **SMALL), JPointMAE(**SMALL)
     svars, tvars = _variables(jstudent, 0), _variables(jteacher, 1)
-    tx = jbuild_optimizer(svars["params"], LR)
+    tx = (jbuild_optimizer(svars["params"], LR) if frozen
+          else jbuild_optimizer(svars["params"], LR, frozen_modules=()))
     jstate = jcreate_state(jax.tree.map(jnp.asarray, svars), tx, with_ema=True)
     jstep = jmake_step(jstudent, jteacher, tx, mask_ratio=0.6, distill_mode=distill_mode,
                        use_fused_embed=True)
-    student, teacher = GM3DStudent(**SMALL), PointMAE(**SMALL)
-    optimizer = build_gm3d_shared_optimizer(student, LR)
+    student, teacher = GM3DStudent(mode=mode, **SMALL), PointMAE(**SMALL)
+    optimizer = (build_gm3d_shared_optimizer(student, LR) if frozen
+                 else build_gm3d_shared_optimizer(student, LR, frozen_modules=()))
     state = create_train_state(student, optimizer, with_ema=True)
     load_pretrain_models(student, state.ema, teacher, svars, svars, tvars)
     step = tp.make_gm3d_train_step(student, teacher, optimizer, mask_ratio=0.6,
@@ -142,14 +147,15 @@ def _leaves(jvariables, module):
     return [(k, want[k].numpy(), got[k].numpy()) for k in sorted(want)]
 
 
-def test_parameters_and_bn_buffers_after_one_step(one_step):
+def _check_parameters_and_bn_buffers(one_step, frozen_head=True):
     """Adam's first update is ``lr * g / (|g| + 1e-8)``: an entry whose
     gradient is far above 1e-8 moves by one learning rate, and there the two
     sides must agree to ``atol=5e-5``. An entry that moved by less than 0.9
     learning rates has a gradient of rounding-noise size (in exact arithmetic
     it is zero: a bias that feeds a train-mode BatchNorm, for one), its update
     is that noise amplified, and only its size is checked. Such entries must
-    be few. BatchNorm running statistics are not Adam's: ``atol=1e-5``."""
+    be few. BatchNorm running statistics are not Adam's: ``atol=1e-5``.
+    ``frozen_head``: the coordinate head is frozen and checked elsewhere."""
     jstate, state, _, _, svars = one_step
     start = state_dict_from_flax(svars, GM3D_STUDENT_MAP)
     moved = unsure = total = 0
@@ -158,7 +164,7 @@ def test_parameters_and_bn_buffers_after_one_step(one_step):
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5, err_msg=name)
             assert np.abs(got - start[name].numpy()).max() > 1e-4, name
             continue
-        if name.startswith(GM3D_COORD_HEAD):
+        if frozen_head and name.startswith(GM3D_COORD_HEAD):
             continue  # frozen: held to equality in its own test
         sure = np.abs(want - start[name].numpy()) >= 0.9 * LR
         np.testing.assert_allclose(got[sure], want[sure], atol=5e-5, rtol=0, err_msg=name)
@@ -172,7 +178,11 @@ def test_parameters_and_bn_buffers_after_one_step(one_step):
     assert state.step == 1 and int(jstate.step) == 1
 
 
-def test_ema_after_one_step(one_step):
+def test_parameters_and_bn_buffers_after_one_step(one_step):
+    _check_parameters_and_bn_buffers(one_step)
+
+
+def _check_ema(one_step):
     jstate, state, _, _, svars = one_step
     start = state_dict_from_flax(svars, GM3D_STUDENT_MAP)
     for name, want, got in _leaves(jstate.ema_variables(), state.ema):
@@ -183,6 +193,70 @@ def test_ema_after_one_step(one_step):
                 for name, _, got in _leaves(jstate.ema_variables(), state.ema))
     assert 0 < drift < 1e-3
     assert not state.ema.training and state.student.training
+
+
+def test_ema_after_one_step(one_step):
+    _check_ema(one_step)
+
+
+@pytest.mark.parametrize("distill_mode, mode, frozen", [
+    ("ema", "feature", True), ("none", "feature", True), ("none", "usual", False)])
+def test_parameters_bn_buffers_and_ema_after_one_step_in_the_other_modes(
+        distill_mode, mode, frozen):
+    """The comparisons above for ``ema`` and ``none``, and for the pretrain
+    CLI's usual-mode student, whose coordinate head is trained
+    (``frozen_modules=()``): there it must move, and agree like the rest."""
+    both = _both(distill_mode, steps=1, mode=mode, frozen=frozen)
+    _check_parameters_and_bn_buffers(both, frozen_head=frozen)
+    _check_ema(both)
+    start = state_dict_from_flax(both[4], GM3D_STUDENT_MAP)
+    head = f"{GM3D_COORD_HEAD}.0.weight"
+    moved = np.abs(both[1].student.state_dict()[head].numpy() - start[head].numpy()).max()
+    assert (moved == 0.0) if frozen else (moved > 0.5 * LR), moved
+
+
+def test_clipped_adamw_step_equals_the_optax_adamw_step():
+    """``ClippedAdamW`` against optax's ``clip_by_global_norm`` + ``adamw``
+    (``gm3d_tpu/train/optim.py::build_adamw``) on the same gradients, decay
+    0.05 and clip 5: a first step whose norm is clipped, a second inside the
+    clip, a third with an all-zero gradient. A weight whose gradient is zero
+    throughout is still decayed on both sides (its gradient is a zero tensor
+    here, not None). Equal to 1e-6."""
+    import optax
+
+    from gm3d_tpu.train.optim import build_adamw as jbuild_adamw
+    from gm3d_tpu_torch.train.optim import build_adamw
+
+    rng = np.random.default_rng(5)
+    shapes = {"w": (6, 4), "b": (4,), "still_w": (3, 5), "still_b": (5,)}
+    start = {k: rng.standard_normal(v).astype(np.float32) for k, v in shapes.items()}
+    grads = []
+    for scale in (3.0, 0.2, 0.0):  # global norms about 15, 1 and 0
+        g = {k: (rng.standard_normal(v) * scale).astype(np.float32) for k, v in shapes.items()}
+        g["still_w"][:] = 0.0
+        g["still_b"][:] = 0.0
+        grads.append(g)
+    assert optax.global_norm(grads[0]) > 5.0 > optax.global_norm(grads[1])
+    tx = jbuild_adamw(LR, 0.05, grad_clip=5.0)
+    jparams = {k: jnp.asarray(v) for k, v in start.items()}
+    jopt = tx.init(jparams)
+    params = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in start.items()}
+    optimizer = build_adamw(list(params.items()), LR, 0.05, grad_clip=5.0)
+    for i, g in enumerate(grads):
+        updates, jopt = tx.update({k: jnp.asarray(v) for k, v in g.items()}, jopt, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in params.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        optimizer.step()
+        np.testing.assert_allclose(float(optimizer.last_grad_norm),
+                                   float(optax.global_norm(g)), rtol=1e-6)
+        for k, p in params.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]), atol=1e-6,
+                                       rtol=0, err_msg=f"step {i} {k}")
+    # decay moved the still weight by lr * wd * p a step; the 1-d one is not decayed
+    want = start["still_w"] * (1.0 - LR * 0.05) ** 3
+    np.testing.assert_allclose(params["still_w"].detach().numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(params["still_b"].detach().numpy(), start["still_b"])
 
 
 def test_coordinate_head_is_left_untouched_on_both_sides(one_step):
