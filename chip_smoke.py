@@ -35,6 +35,20 @@ Phases, each printing one JSON line when it ends:
               (keys, finite values, the schedule's learning rate) and the
               kernel launches of its eight steps, and prints its clouds per
               second beside the bare step's
+  teacher     the CLI's ``--model_family pointmae`` (``config_m.yaml``, full
+              width) for two epochs of four steps: ``log.txt``, the legacy
+              schedule, launches (FPS and KNN only), its checkpoint; then the
+              GM3D CLI for one epoch with ``--teacher_ckpt`` on it, traced by
+              ``--profile_dir``: the teacher inside the run equals the saved
+              tensors bit for bit, the launches are the step's, and the trace
+              gives the device's busy share
+  resume      the GM3D CLI in a process of its own with ``--save_steps 1``
+              gets a real SIGTERM after its first save, exits 0, and
+              ``--resume`` trains the rest; a full-width state saved by the
+              asynchronous writer while the live tensors move on restores bit
+              for bit; the state's size, the snapshot's device time and
+              memory, a synchronous save's wall time, and the CLI's clouds per
+              second with saves every two steps, inline and in the background
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
@@ -50,8 +64,11 @@ import io
 import itertools
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -65,6 +82,10 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA device: "
                      "torch.cuda.is_available() is False")
 
+from gm3d_tpu_torch.ckpt.async_writer import (AsyncCheckpointWriter, device_snapshot,  # noqa: E402
+                                              tensors_of)
+from gm3d_tpu_torch.ckpt.checkpoint import (capture, latest_step, load_loader_state,  # noqa: E402
+                                            restore_checkpoint, restore_raw, save_checkpoint)
 from gm3d_tpu_torch.cli import export_model  # noqa: E402
 from gm3d_tpu_torch.cli import pretrain as pretrain_cli  # noqa: E402
 from gm3d_tpu_torch.ops import _build  # noqa: E402
@@ -80,8 +101,11 @@ from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
 from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
 from gm3d_tpu_torch.train.optim import GM3D_COORD_HEAD  # noqa: E402
-from gm3d_tpu_torch.train.pretrain import METRIC_KEYS, make_gm3d_train_step  # noqa: E402
-from gm3d_tpu_torch.train.schedules import cosine_warmup_schedule, effective_lr  # noqa: E402
+from gm3d_tpu_torch.train.pretrain import (METRIC_KEYS, POINTMAE_METRIC_KEYS,  # noqa: E402
+                                           make_gm3d_train_step)
+from gm3d_tpu_torch.train.schedules import (cosine_warmup_schedule, effective_lr,  # noqa: E402
+                                            legacy_cosine_epoch_schedule)
+from gm3d_tpu_torch.utils.profiling import device_busy_share, device_idle_gaps  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
@@ -940,7 +964,233 @@ def phase_pretrain_cli(env: dict, trained: dict | None) -> dict:
     return {"launches": launches}
 
 
-PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli")
+# the teacher's pretrain (config_m.yaml at full width): the JAX step enters no
+# fused attention and runs its patch embed in train mode, so one grouping a step
+TEACHER_CONFIG = os.path.join(ROOT, "configs", "pointmae", "config_m.yaml")
+GM3D_CONFIG = os.path.join(ROOT, "configs", "pointmae", "config.yaml")
+TEACHER_LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
+                             "attention_bwd": 0}
+TEACHER_RECORD_KEYS = set(POINTMAE_METRIC_KEYS) | {"epoch", "time", "lr", "steps",
+                                                   "clouds_per_sec"}
+
+
+def _cli_flags(out: str, epochs: int = CLI_EPOCHS) -> list:
+    return ["--synthetic", "--synthetic_samples", str(CLI_SAMPLES), "--batch_size",
+            str(TRAIN_BATCH), "--epochs", str(epochs), "--output_dir", out]
+
+
+def _read_log(out: str) -> list:
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_teacher(env: dict, tmp: str) -> dict:
+    """The teacher's pretrain through the CLI (``--model_family pointmae``),
+    then the GM3D CLI reading its checkpoint with ``--teacher_ckpt``."""
+    teacher_out = os.path.join(tmp, "teacher")
+    pp.reset_launches()  # the teacher's path: every launch count starts from 0 here
+    records = pretrain_cli.main(["--config", TEACHER_CONFIG, "--model_family", "pointmae",
+                                 *_cli_flags(teacher_out)])
+    launches = pp.read_launches()
+    log = _read_log(teacher_out)
+    check(log == records, "log.txt differs from the records main() returned")
+    check([r["epoch"] for r in log] == list(range(CLI_EPOCHS)), log)
+    # the legacy schedule of config_m.yaml (lr 1e-3, 10 warm-up epochs of 300)
+    # trails the epoch by one: both epochs train at the warm-up's start, 1e-6
+    sched = legacy_cosine_epoch_schedule(1e-3, 300, 10, CLI_STEPS_PER_EPOCH)
+    ckpt = os.path.join(teacher_out, "ckpt")
+    for r in log:
+        check(set(r) == TEACHER_RECORD_KEYS, f"log.txt keys {sorted(r)}")
+        check(r["steps"] == CLI_STEPS_PER_EPOCH and all(np.isfinite(r[k]) for k in r), r)
+        end = CLI_STEPS_PER_EPOCH * (r["epoch"] + 1)
+        check(r["lr"] == sched(end), (r["lr"], sched(end)))
+        # the rate the epoch's last step trained at, as its checkpoint holds it
+        trained = restore_raw(ckpt, end)["optimizer"]["param_groups"][0]["lr"]
+        check(trained == sched(end - 1) == 1e-6, (r["epoch"], trained))
+    steps = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
+    want = {k: v * steps for k, v in TEACHER_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"teacher launches {launches}, expected {want}")
+    check(latest_step(ckpt) == steps, f"latest teacher step {latest_step(ckpt)}")
+
+    # the GM3D CLI with that teacher: one epoch, traced by --profile_dir
+    seen = {}
+    load = pretrain_cli.load_teacher_checkpoint
+
+    def load_and_keep(teacher, ckpt_dir, logger):
+        load(teacher, ckpt_dir, logger)
+        seen["teacher"] = teacher
+
+    gm3d_out = os.path.join(tmp, "gm3d_with_teacher")
+    prof_dir = os.path.join(tmp, "profile")
+    pretrain_cli.load_teacher_checkpoint = load_and_keep
+    try:
+        pp.reset_launches()  # the GM3D path: every launch count starts from 0 here
+        gm3d = pretrain_cli.main(["--config", GM3D_CONFIG, "--teacher_ckpt", ckpt,
+                                  "--profile_dir", prof_dir,
+                                  "--profile_steps", str(CLI_STEPS_PER_EPOCH),
+                                  *_cli_flags(gm3d_out, epochs=1)])
+        gm3d_launches = pp.read_launches()
+    finally:
+        pretrain_cli.load_teacher_checkpoint = load
+    want = {k: v * CLI_STEPS_PER_EPOCH for k, v in LAUNCHES_PER_STEP.items()}
+    check(gm3d_launches == want, f"GM3D launches {gm3d_launches}, expected {want}")
+    check(len(gm3d) == 1 and all(np.isfinite(gm3d[0][k]) for k in CLI_RECORD_KEYS), gm3d)
+    saved = restore_raw(ckpt, map_location=DEV)["model"]
+    inside = seen["teacher"].state_dict()
+    check(sorted(saved) == sorted(inside), "the teacher's tensors differ from the saved ones")
+    for key, value in saved.items():
+        check(inside[key].device == value.device == DEV and torch.equal(inside[key], value),
+              f"the teacher inside the run differs from its checkpoint at {key}")
+    busy = device_busy_share(os.path.join(prof_dir, "trace.json"))
+    gaps = device_idle_gaps(os.path.join(prof_dir, "trace.json"))
+    res = {"phase": "teacher", "epochs": CLI_EPOCHS, "steps": steps, "batch": TRAIN_BATCH,
+           "launches": launches, "launches_per_step": TEACHER_LAUNCHES_PER_STEP, "records": log,
+           "teacher_clouds_per_sec_last_epoch": log[-1]["clouds_per_sec"],
+           "latest_step": latest_step(ckpt), "gm3d_with_teacher_ckpt": {
+               "launches": gm3d_launches, "teacher_tensors_equal": len(saved),
+               "clouds_per_sec": gm3d[0]["clouds_per_sec"],
+               "device_busy_share_4_steps": busy,
+               "longest_device_idle_gaps_ms_at_ms": gaps},
+           "gpu": env["gpu"]}
+    emit(res)
+    return {"launches": launches}
+
+
+def _run_cli_process(args: list, log_path: str, until=None, timeout: float = 600.0):
+    """``python -m gm3d_tpu_torch.cli.pretrain`` in a process of its own; with
+    ``until`` (a path), SIGTERM once that file exists. Returns the exit code."""
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "gm3d_tpu_torch.cli.pretrain", *args],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + timeout
+        if until is not None:
+            while not os.path.exists(until) and proc.poll() is None:
+                check(time.monotonic() < deadline, f"{until} did not appear")
+                time.sleep(0.02)
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        return proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_resume(env: dict, tmp: str) -> None:
+    """A real SIGTERM to the GM3D CLI in its own process, then ``--resume``;
+    the asynchronous writer's snapshot at full width; save times."""
+    out = os.path.join(tmp, "resume")
+    ckpt = os.path.join(out, "ckpt")
+    args = ["--config", GM3D_CONFIG, "--save_steps", "1", *_cli_flags(out)]
+    rc = _run_cli_process(args, os.path.join(tmp, "preempted.log"),
+                          until=os.path.join(ckpt, "loader_state.json"))
+    with open(os.path.join(tmp, "preempted.log")) as f:
+        text = f.read()
+    check(rc == 0, f"the preempted CLI exited {rc}: {text[-2000:]}")
+    check("preempted: checkpoint + loader position saved" in text, text[-2000:])
+    stopped, token = latest_step(ckpt), load_loader_state(ckpt)
+    total = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
+    check(0 < stopped < total, f"stopped at step {stopped}")
+    check(stopped == token["epoch"] * CLI_STEPS_PER_EPOCH + token["batch"],
+          f"checkpoint step {stopped} and loader position {token} disagree")
+    rc = _run_cli_process(args + ["--resume"], os.path.join(tmp, "resumed.log"))
+    with open(os.path.join(tmp, "resumed.log")) as f:
+        text = f.read()
+    check(rc == 0, f"the resumed CLI exited {rc}: {text[-2000:]}")
+    check(f"resumed from step {stopped}" in text, text[-2000:])
+    log = _read_log(out)
+    check(sorted(r["epoch"] for r in log) == list(range(CLI_EPOCHS)), log)
+    # the preempted run logged no epoch; the resumed one trains each batch left once
+    check(sum(r["steps"] for r in log) == total - stopped, f"steps {[r['steps'] for r in log]}")
+    check(latest_step(ckpt) == total, latest_step(ckpt))
+    check(load_loader_state(ckpt) == {"epoch": CLI_EPOCHS, "batch": 0}, load_loader_state(ckpt))
+
+    # the writer at full width: one step's state, saved from a snapshot while the
+    # live tensors move on in place, restored into fresh modules on the card
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    state, _ = step(state, _train_clouds(gen), gen, pp.SCALARS)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for t in tensors_of(capture(state)))
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    snap = device_snapshot(state)  # the first one allocates its buffers
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    snapshot_bytes = torch.cuda.memory_allocated() - base
+    # a later one writes over them. The card is kept busy (_sleep) while the host
+    # enqueues the copies, so that the events time the copies alone
+    buffers = tensors_of(snap)
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    begin.record()
+    t0 = time.perf_counter()
+    device_snapshot(state, buffers)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    snapshot_ms = begin.elapsed_time(end)
+    del snap, buffers
+
+    def timed_steps(n):
+        # the training stream's own end, as a metrics read waits for it: a
+        # device-wide synchronize would also wait for the writer's copies
+        out, stream = [], torch.cuda.current_stream(DEV)
+        for _ in range(n):
+            pts = _train_clouds(gen)
+            stream.synchronize()
+            t0 = time.perf_counter()
+            step(state, pts, gen, pp.SCALARS)
+            stream.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    alone = timed_steps(3)
+    writer = AsyncCheckpointWriter()
+    async_dir = os.path.join(tmp, "async_ckpt")
+    want = [t.clone() for t in tensors_of(capture(state))]
+    saved_step = state.step
+    writer.submit(state, lambda s: save_checkpoint(async_dir, s, saved_step))
+    # the live tensors move on in place at once, while the save is in flight
+    beside_save = timed_steps(3)
+    writer.wait()
+    moved = sum(not torch.equal(a, b) for a, b in zip(want, tensors_of(capture(state))))
+    check(moved > len(want) // 2, f"only {moved} of {len(want)} live tensors moved")
+    fresh, _ = pp.build_pretrain_setup(seed=5, device="cuda")
+    check(restore_checkpoint(async_dir, fresh) == saved_step,
+          "the async checkpoint did not restore")
+    got = tensors_of(capture(fresh))
+    check(len(got) == len(want), (len(got), len(want)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(torch.equal(g.to(w.device), w), f"restored tensor {i} differs from the submitted")
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "sync_ckpt"), state, state.step)
+    sync_save_s = time.perf_counter() - t0
+    del state, teacher, fresh, want, got
+    torch.cuda.empty_cache()
+
+    # what the writer hides of an epoch: saves every 2 steps, inline or not
+    rates = {}
+    for name, extra in (("sync_save", ["--sync_save"]), ("async", [])):
+        run = os.path.join(tmp, f"save_every_2_{name}")
+        records = pretrain_cli.main(["--config", GM3D_CONFIG, "--save_steps", "2", *extra,
+                                     *_cli_flags(run)])
+        check(latest_step(os.path.join(run, "ckpt")) == total, name)
+        rates[name] = [r["clouds_per_sec"] for r in records]
+    emit({"phase": "resume", "preempted_at_step": stopped, "loader_position": token,
+          "resumed_records": log, "latest_step": total, "state_bytes": state_bytes,
+          "snapshot_ms_device": snapshot_ms, "snapshot_ms_host": host_ms,
+          "first_snapshot_ms_wall": first_ms, "snapshot_extra_device_bytes": snapshot_bytes,
+          "step_ms_wall_alone": alone, "step_ms_wall_beside_async_save": beside_save,
+          "sync_save_s_wall": sync_save_s,
+          "clouds_per_sec_save_every_2_steps": rates,
+          "tmp_free_bytes": shutil.disk_usage(tmp).free, "gpu": env["gpu"]})
+
+
+PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
+          "resume")
 
 
 def main() -> None:
@@ -964,6 +1214,11 @@ def main() -> None:
             phase_throughput(tmp, served["artifact"])
     trained = phase_train(env) if "train" in phases else None
     cli = phase_pretrain_cli(env, trained) if "pretrain_cli" in phases else None
+    with tempfile.TemporaryDirectory() as tmp:
+        taught = phase_teacher(env, tmp) if "teacher" in phases else None
+    with tempfile.TemporaryDirectory() as tmp:
+        if "resume" in phases:
+            phase_resume(env, tmp)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -974,6 +1229,8 @@ def main() -> None:
         else:
             kern["launches"] = trained["launches"][kern["name"]]
         kern["launches_pretrain_cli"] = cli["launches"][kern["name"]]
+        # the teacher's step launches FPS and KNN only, as the JAX step routes it
+        kern["launches_teacher"] = taught["launches"][kern["name"]]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

@@ -35,10 +35,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--val_freq", type=int, default=1)
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue 1 item 1b): raises")
+                   help="continue from <output_dir>/ckpt: the latest step, and the "
+                        "loader position where a mid-epoch save left one")
     p.add_argument("--save_steps", type=int, default=0,
-                   help="checkpoint every N optimizer steps within an epoch; "
-                        "not ported yet (item 1b): above 0 raises")
+                   help="checkpoint every N optimizer steps within an epoch, with "
+                        "the loader position (0: at epoch ends only)")
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic clouds instead of on-disk datasets")
     p.add_argument("--synthetic_samples", type=int, default=512)
@@ -52,7 +53,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="data-parallel devices; the port runs on one, more "
                         "raise (item 8)")
     p.add_argument("--sync_save", action="store_true",
-                   help="write checkpoints synchronously (item 1b)")
+                   help="write checkpoints synchronously (the default copies the "
+                        "state on the device and writes it from a background thread)")
     p.add_argument("--sync_metrics", action="store_true",
                    help="read each step's metrics synchronously instead of one "
                         "step behind (the default keeps the GPU's queue full; "

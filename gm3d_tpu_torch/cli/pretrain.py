@@ -1,18 +1,25 @@
-"""GM3D pretraining: epochs of the GM3D pretrain step from the command line.
+"""GM3D and Point-MAE pretraining from the command line.
 
-Port of ``gm3d_tpu/cli/pretrain.py`` for ``--model_family gm3d`` with the
-shared optimizer and ``--learn_feature_loss`` ``dino``, ``ema`` or ``none``,
-on synthetic clouds or on-disk ShapeNet-55. Same flags, same log files
-(``pretrain.log``, the JSON-lines ``log.txt``, ``tfboard/``) and the same
-keys in them, less ``val_svm_acc``::
+Port of ``gm3d_tpu/cli/pretrain.py`` for ``--model_family gm3d`` (shared
+optimizer, ``--learn_feature_loss`` ``dino``, ``ema`` or ``none``) and
+``--model_family pointmae`` (the teacher's pretrain, the legacy runner's
+recipe), on synthetic clouds or on-disk ShapeNet-55. Same flags, same log
+files (``pretrain.log``, the JSON-lines ``log.txt``, ``tfboard/``) and the
+same keys in them, less ``val_svm_acc``; the same checkpoints in
+``<output_dir>/ckpt`` (``ckpt/checkpoint.py``): a rolling save each epoch,
+``--save_steps`` within one, ``--save_interval`` snapshots under
+``ckpt/epochs``, written from a background thread unless ``--sync_save``;
+``--resume``; a SIGTERM saves and exits 0. The teacher, then GM3D::
 
+  python -m gm3d_tpu_torch.cli.pretrain --config configs/pointmae/config_m.yaml \\
+      --model_family pointmae --synthetic --epochs 2 --output_dir /tmp/teacher
   python -m gm3d_tpu_torch.cli.pretrain --config configs/pointmae/config.yaml \\
-      --synthetic --epochs 2 --batch_size 32 --output_dir /tmp/run
+      --synthetic --epochs 2 --teacher_ckpt /tmp/teacher/ckpt --output_dir /tmp/run
 
 Runs on the GPU unless ``--device cpu`` is given. Every flag of the JAX CLI
 is accepted; those whose path is not ported yet raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item (``NOT_PORTED``). Not done yet, and said once
-at start-up: checkpoints (item 1b) and the SVM probe (item 1c).
+at start-up: the SVM probe, with ``ckpt/best`` (item 1c).
 """
 
 from __future__ import annotations
@@ -24,6 +31,16 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gm3d_tpu_torch.ckpt.async_writer import AsyncCheckpointWriter
+from gm3d_tpu_torch.ckpt.checkpoint import (
+    latest_step,
+    load_best_metrics,
+    load_loader_state,
+    restore_checkpoint,
+    restore_raw,
+    save_checkpoint,
+    save_loader_state,
+)
 from gm3d_tpu_torch.ckpt.torch_import import load_torch_file
 from gm3d_tpu_torch.cli.common import (
     base_parser,
@@ -36,18 +53,30 @@ from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
 from gm3d_tpu_torch.data.prefetch import device_prefetch
 from gm3d_tpu_torch.masking import keep_ratio_schedule
 from gm3d_tpu_torch.models import GM3DStudent
-from gm3d_tpu_torch.train.optim import GM3D_COORD_HEAD, build_gm3d_shared_optimizer
-from gm3d_tpu_torch.train.pretrain import METRIC_KEYS, make_gm3d_train_step
+from gm3d_tpu_torch.train.optim import (
+    GM3D_COORD_HEAD,
+    build_gm3d_shared_optimizer,
+    build_legacy_adamw,
+)
+from gm3d_tpu_torch.train.pretrain import (
+    METRIC_KEYS,
+    POINTMAE_METRIC_KEYS,
+    make_gm3d_train_step,
+    make_pointmae_train_step,
+)
 from gm3d_tpu_torch.train.schedules import (
     cosine_warmup_schedule,
     effective_lr,
     ema_decay_schedule,
+    legacy_cosine_epoch_schedule,
     loss_weights,
 )
 from gm3d_tpu_torch.train.state import create_train_state
 from gm3d_tpu_torch.utils import JsonlLogger, MetricLogger, ScalarWriter, get_logger
 from gm3d_tpu_torch.utils.debug import check_finite_loss
 from gm3d_tpu_torch.utils.pipeline import DeferredMetrics
+from gm3d_tpu_torch.utils.preempt import PreemptionGuard
+from gm3d_tpu_torch.utils.profiling import start_trace, stop_trace
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -59,8 +88,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--dino_path", default=None,
                    help="teacher .pth (reference pretrain_PMAE.pth); random teacher if absent")
     p.add_argument("--teacher_ckpt", default=None,
-                   help="orbax checkpoint of a teacher pretrain; not readable yet "
-                        "(ROADMAP.md Queue 1 item 1b's converter): raises")
+                   help="checkpoint directory of a teacher pretrain (a --model_family "
+                        "pointmae run's <output_dir>/ckpt, or a JAX one converted by "
+                        "tools/orbax_to_torch.py)")
     p.add_argument("--teacher_config", default=None,
                    help="teacher YAML (defaults to config_m.yaml beside --config)")
     p.add_argument("--learn_feature_loss", choices=["dino", "ema", "clip", "none"],
@@ -88,8 +118,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--sync_bn", default=True, action=argparse.BooleanOptionalAction,
                    help="a no-op on one device")
     p.add_argument("--save_interval", type=int, default=100,
-                   help="accepted; no checkpoint is written until item 1b")
-    p.add_argument("--profile_dir", default=None)
+                   help="epoch snapshots under <ckpt>/epochs every N epochs; 0 disables")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace (host and CUDA device) of "
+                        "the first --profile_steps steps into this directory")
     p.add_argument("--profile_steps", type=int, default=5)
     p.add_argument("--shared_opt", default=True, action=argparse.BooleanOptionalAction)
     p.add_argument("--quantize_ema", action="store_true")
@@ -100,7 +132,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 # --num_devices above 1 (item 8) raises in setup_mesh, --native_loader (item 10) in
 # make_train_loader
 NOT_PORTED = (
-    (lambda a: a.model_family == "pointmae", "--model_family pointmae", "2"),
     (lambda a: a.model_family in ("m2ae", "m2ae_gm3d"), "--model_family m2ae / m2ae_gm3d",
      "3"),
     (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
@@ -111,10 +142,6 @@ NOT_PORTED = (
     (lambda a: not a.shared_opt, "--no-shared_opt", "1c"),
     (lambda a: a.bf16, "--bf16", "1c"),
     (lambda a: a.quantize_ema, "--quantize_ema", "9"),
-    (lambda a: a.resume, "--resume", "1b"),
-    (lambda a: a.save_steps > 0, "--save_steps", "1b"),
-    (lambda a: a.profile_dir is not None, "--profile_dir", "1b"),
-    (lambda a: a.teacher_ckpt is not None, "--teacher_ckpt (an orbax checkpoint)", "1b"),
 )
 
 
@@ -150,6 +177,24 @@ def build_teacher(args, cfg, dtype: torch.dtype):
     teacher = build_model_from_cfg(tcfg["model"], dtype=dtype)
     teacher.reset_parameters(torch.Generator().manual_seed(2))
     return teacher
+
+
+def build_pointmae(args, cfg, dtype: torch.dtype):
+    """The Point-MAE of the config's ``model`` section, for the teacher's
+    pretrain; weights drawn from a generator seeded 1 (the JAX CLI's init key)."""
+    model = build_model_from_cfg(cfg["model"], dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    return model
+
+
+def load_teacher_checkpoint(teacher: torch.nn.Module, ckpt_dir: str, logger) -> None:
+    """The latest step of a teacher pretrain's checkpoint directory into the
+    teacher, strictly (every tensor, BN buffers included)."""
+    raw = restore_raw(ckpt_dir)
+    if raw is None:
+        raise FileNotFoundError(f"no teacher ckpt at {ckpt_dir}")
+    teacher.load_state_dict(raw["model"], strict=True)
+    logger.info(f"teacher loaded from step {int(raw['step'])}")
 
 
 def load_teacher_weights(teacher: torch.nn.Module, path: str, logger) -> None:
@@ -205,9 +250,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
     tb = ScalarWriter(os.path.join(args.output_dir, "tfboard"))
     logger.warning(
-        "not done by this CLI yet: checkpoints (ROADMAP.md Queue 1 item 1b; --save_interval "
-        "and --sync_save do nothing), the SVM probe (item 1c; --val_freq does nothing); "
-        "--sync_bn is a no-op on one device; --steps_per_dispatch runs its steps one by one")
+        "not done by this CLI yet: the SVM probe with ckpt/best and best_metrics.json "
+        "(ROADMAP.md Queue 1 item 1c; --val_freq does nothing); --sync_bn is a no-op on one "
+        "device; --steps_per_dispatch runs its steps one by one")
     dtype = compute_dtype(args)
     epochs = cfg["max_epoch"]
     batch = cfg["total_bs"]
@@ -221,25 +266,55 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                    updates_per_epoch)
     wd = cfg["optimizer"]["kwargs"]["weight_decay"]
 
-    mode = student_mode(args)
-    student = build_student(args, mode, dtype).to(dev)
-    teacher = None
-    if args.learn_feature_loss == "dino":
-        teacher = build_teacher(args, cfg, dtype)
-        if args.dino_path:
-            load_teacher_weights(teacher, args.dino_path, logger)
-        else:
-            logger.warning("no teacher weights given: teacher is randomly initialised")
-        teacher = teacher.to(dev)
-    # the coordinate head gets no gradient in feature mode: frozen, not decayed
-    frozen = (GM3D_COORD_HEAD,) if mode == "feature" else ()
-    optimizer = build_gm3d_shared_optimizer(student, sched(0), wd, frozen_modules=frozen)
-    state = create_train_state(student, optimizer, with_ema=True)
-    step_fn = make_gm3d_train_step(student, teacher, optimizer, args.mask_ratio,
-                                   args.shared_learnable_tokens, args.relative,
-                                   distill_mode=args.learn_feature_loss, device=dev)
+    if args.model_family == "gm3d":
+        mode = student_mode(args)
+        student = build_student(args, mode, dtype).to(dev)
+        teacher = None
+        if args.learn_feature_loss == "dino":
+            teacher = build_teacher(args, cfg, dtype)
+            if args.dino_path:
+                load_teacher_weights(teacher, args.dino_path, logger)
+            elif args.teacher_ckpt:
+                load_teacher_checkpoint(teacher, args.teacher_ckpt, logger)
+            else:
+                logger.warning("no teacher weights given: teacher is randomly initialised")
+            teacher = teacher.to(dev)
+        # the coordinate head gets no gradient in feature mode: frozen, not decayed
+        frozen = (GM3D_COORD_HEAD,) if mode == "feature" else ()
+        optimizer = build_gm3d_shared_optimizer(student, sched(0), wd, frozen_modules=frozen)
+        state = create_train_state(student, optimizer, with_ema=True)
+        gm3d_step = make_gm3d_train_step(student, teacher, optimizer, args.mask_ratio,
+                                         args.shared_learnable_tokens, args.relative,
+                                         distill_mode=args.learn_feature_loss, device=dev)
+        keys = METRIC_KEYS
+
+        def run_step(state, pts, generator, scalars):
+            draws = step_draws(generator, pts.shape[0], student.num_group)
+            return gm3d_step(state, pts, generator, scalars, draws=draws)
+    else:  # pointmae: the legacy runner's recipe, which made the published teacher
+        scheduler = cfg.get("scheduler", {}).get("kwargs", {})
+        sched = legacy_cosine_epoch_schedule(
+            cfg["optimizer"]["kwargs"].get("lr", lr), scheduler.get("epochs", epochs),
+            scheduler.get("initial_epochs", 10), updates_per_epoch)
+        model = build_pointmae(args, cfg, dtype).to(dev)
+        optimizer = build_legacy_adamw(model.named_parameters(), sched(0), wd,
+                                       accum_steps=args.accum_iter)
+        state = create_train_state(model, optimizer)
+        tc = cfg["model"]["transformer_config"]
+        # config_m.yaml's mask ratio is 0 (the teacher's replay); it trains at 0.6
+        pointmae_step = make_pointmae_train_step(
+            model, optimizer, tc["mask_ratio"] or 0.6, tc.get("mask_type", "rand"),
+            cfg["model"].get("loss", "cdl2"), device=dev)
+        keys = POINTMAE_METRIC_KEYS
+
+        def run_step(state, pts, generator, scalars):
+            draws = step_draws(generator, pts.shape[0], model.num_group)
+            return pointmae_step(state, pts, generator, draws=draws)
+
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
+    # the random sequence starts again from --seed on --resume, as the JAX CLI's key does
     generator = torch.Generator(device=dev).manual_seed(args.seed)
-    train_loader.load_state({"epoch": 0, "batch": 0})
+    writer = AsyncCheckpointWriter(enabled=not args.sync_save)
 
     def emit_epoch(stats):
         """The epoch's log line, JSONL record and TensorBoard scalars
@@ -256,40 +331,104 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         tb.add_scalar("grad_norm", stats.get("grad_norm", 0.0), ep)
         tb.flush()
 
+    def submit_save(step, token):
+        """The rolling checkpoint of ``step``, then its loader position."""
+        writer.submit(state, lambda s: (save_checkpoint(ckpt_dir, s, step),
+                                        save_loader_state(ckpt_dir, token)))
+
+    def save_now(token):
+        """A synchronous rolling save (the process exits right after)."""
+        writer.wait()
+        save_checkpoint(ckpt_dir, state, state.step)
+        save_loader_state(ckpt_dir, token)
+
     records = []
+    prof_remaining = args.profile_steps if args.profile_dir else 0
+    prof = start_trace(args.profile_dir) if prof_remaining else None
+    # SIGTERM: checkpoint at the next step boundary and exit 0 (utils/preempt.py)
+    guard = PreemptionGuard(logger).install()
     try:
-        for epoch in range(epochs):
+        start_epoch = 0
+        loader_token = {}
+        if args.resume:
+            if restore_checkpoint(ckpt_dir, state) is not None:
+                # best-so-far comes back too, so that a worse epoch after the
+                # resume cannot overwrite ckpt/best (written with item 1c)
+                best = float(load_best_metrics(ckpt_dir).get("best", 0.0))
+                logger.info(f"resumed from step {state.step} (best svm {best:.4f})")
+            start_epoch = state.step // steps_per_epoch
+            # a mid-epoch save names the exact next batch
+            loader_token = load_loader_state(ckpt_dir)
+            if loader_token:
+                start_epoch = int(loader_token.get("epoch", start_epoch))
+        train_loader.load_state(loader_token or {"epoch": start_epoch, "batch": 0})
+        last_saved_step = state.step
+        for epoch in range(start_epoch, epochs):
             meter = MetricLogger()
             t0 = time.time()
-            scalars = epoch_scalars(args, epoch, epochs)
+            scalars = epoch_scalars(args, epoch, epochs) if args.model_family == "gm3d" else None
 
             def drain(metrics):
-                # the host read: waits for that step; one copy for the six values
-                values = torch.stack([metrics[k] for k in METRIC_KEYS]).tolist()
-                host = dict(zip(METRIC_KEYS, values))
+                # the host read: waits for that step; one copy for all values
+                values = torch.stack([metrics[k] for k in keys]).tolist()
+                host = dict(zip(keys, values))
                 meter.update(**host)
                 # the reference's NaN-loss hard exit, one step late under the pipeline
                 check_finite_loss(host["loss"], logger)
 
             dm = DeferredMetrics(drain, depth=0 if args.sync_metrics else 1)
-            for pts in device_prefetch(train_loader, device=dev):
+            prefetcher = device_prefetch(train_loader, device=dev)
+
+            def position():
+                # the token as of the last batch yielded: resume replays nothing
+                return prefetcher.state() or {"epoch": epoch, "batch": 0}
+
+            for pts in prefetcher:
                 # optax evaluates the schedule at the optimizer's count BEFORE the update
                 for group in optimizer.param_groups:
                     group["lr"] = sched(state.step)
-                draws = step_draws(generator, pts.shape[0], student.num_group)
-                state, metrics = step_fn(state, pts, generator, scalars, draws=draws)
+                state, metrics = run_step(state, pts, generator, scalars)
                 dm.push(metrics)
+                if args.save_steps and state.step - last_saved_step >= args.save_steps:
+                    # the deferred NaN checks first: a state whose loss was never
+                    # checked must not replace the last good checkpoint
+                    dm.flush()
+                    submit_save(state.step, position())
+                    last_saved_step = state.step
+                guard.exit_if_triggered(lambda: (dm.flush(), save_now(position())))
+                if prof_remaining:
+                    prof_remaining -= 1
+                    if prof_remaining == 0:
+                        dm.flush()
+                        logger.info("profiler trace written to "
+                                    f"{stop_trace(prof, args.profile_dir)}")
             dm.flush()
+            # every step of this epoch is trained: a signal here resumes at epoch + 1
+            guard.exit_if_triggered(lambda: save_now({"epoch": epoch + 1, "batch": 0}))
             stats = meter.global_avgs()
             epoch_time = time.time() - t0
             n_steps = meter.meters["loss"].count if "loss" in meter.meters else 0
             stats.update(epoch=epoch, time=round(epoch_time, 2),
                          lr=float(sched(state.step)), steps=n_steps,
                          clouds_per_sec=round(n_steps * batch / max(epoch_time, 1e-9), 1))
+            # the rolling save of the epoch, its sidecar at the next epoch's start
+            submit_save(state.step, {"epoch": epoch + 1, "batch": 0})
+            last_saved_step = state.step
+            if args.save_interval and (epoch + 1) % args.save_interval == 0:
+                step = state.step
+                writer.submit(state, lambda s, step=step: save_checkpoint(
+                    os.path.join(ckpt_dir, "epochs"), s, step, max_to_keep=1000))
             emit_epoch(stats)
             records.append(stats)
     finally:
+        # on ANY exit: the save in flight is of a NaN-checked state, commit it
+        writer.wait()
+        guard.uninstall()
         tb.close()
+    if prof_remaining:  # the run ended before --profile_steps steps
+        stop_trace(prof, args.profile_dir)
+    if latest_step(ckpt_dir) != state.step:  # a run with no epoch left to train
+        save_checkpoint(ckpt_dir, state, state.step)
     logger.info(f"done: {state.step} steps")
     return records
 

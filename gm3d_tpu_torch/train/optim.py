@@ -3,8 +3,8 @@
 Port of ``gm3d_tpu/train/optim.py::build_adamw`` and
 ``::build_gm3d_shared_optimizer`` over ``torch.optim.AdamW`` with two
 parameter groups (decay on parameters with ``ndim > 1``, none on biases and
-norms). The separated, legacy and layer-decay constructors of that file are not
-ported yet.
+norms), and ``::build_legacy_adamw``, the teacher pretrain's. The separated
+and layer-decay constructors of that file are not ported yet.
 
 Two places where optax and torch differ, and what is done about them:
 
@@ -90,6 +90,25 @@ def build_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
     named = [(n, p) for n, p in named_params if p.requires_grad]
     return ClippedAdamW(_decay_groups(named, weight_decay), grad_clip=grad_clip,
                         lr=learning_rate, betas=tuple(betas), eps=1e-8)
+
+
+def build_legacy_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
+                       accum_steps: int = 1) -> torch.optim.AdamW:
+    """The legacy runners' AdamW, which made the published teacher: torch's
+    default betas (0.9, 0.999), no gradient clip, and no weight decay on a
+    1-d parameter, a ``.bias`` or ANY parameter whose name contains
+    ``token`` (``mask_token``, ``cls_token``). The names are torch's; the
+    JAX mask reads the same words in the flax paths."""
+    if accum_steps > 1:
+        raise NotImplementedError(
+            "accum_steps > 1 (gradient accumulation, summed over the micro-batches in the "
+            "legacy runners) is not ported yet (ROADMAP.md Queue 1 item 1c)")
+    named = [(n, p) for n, p in named_params if p.requires_grad]
+    decay = [p for n, p in named if p.ndim > 1 and "token" not in n]
+    no_decay = [p for n, p in named if not (p.ndim > 1 and "token" not in n)]
+    return torch.optim.AdamW([{"params": decay, "weight_decay": weight_decay},
+                              {"params": no_decay, "weight_decay": 0.0}],
+                             lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
 def build_gm3d_shared_optimizer(student: nn.Module, learning_rate: float,

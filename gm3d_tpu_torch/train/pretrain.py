@@ -1,8 +1,8 @@
-"""The GM3D pretrain step.
+"""The pretrain steps: GM3D, and the Point-MAE teacher's.
 
-Port of ``gm3d_tpu/train/pretrain.py::gm3d_forward_distill`` and
-``::make_gm3d_train_step`` in the default set-up (shared optimizer). One
-step:
+Port of ``gm3d_tpu/train/pretrain.py::gm3d_forward_distill``,
+``::make_gm3d_train_step`` in the default set-up (shared optimizer) and
+``::make_pointmae_train_step``. One GM3D step:
 
   1. augment            (``scale_and_translate``)
   2. ONE grouping       (FPS + KNN kernels), shared by the three passes
@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from gm3d_tpu_torch.data.transforms import scale_and_translate
-from gm3d_tpu_torch.masking import geometric_mask, gm3d_num_mask
+from gm3d_tpu_torch.masking import block_mask, geometric_mask, gm3d_num_mask, random_mask
 from gm3d_tpu_torch.models.blocks import fused_attention_scope
 from gm3d_tpu_torch.models.gm3d import GM3DStudent
 from gm3d_tpu_torch.models.pointmae import PointMAE, take_groups
@@ -47,6 +47,64 @@ from gm3d_tpu_torch.train.state import TrainState, ema_update
 from gm3d_tpu_torch.utils.device import resolve_device
 
 METRIC_KEYS = ("loss", "loss_recon", "loss_mse", "loss_chfr", "loss_learn", "grad_norm")
+POINTMAE_METRIC_KEYS = ("loss", "grad_norm")
+
+
+def make_pointmae_train_step(model: PointMAE, optimizer: torch.optim.Optimizer,
+                             mask_ratio: float = 0.6, mask_type: str = "rand",
+                             loss_type: str = "cdl2", augment: bool = True,
+                             device="cuda") -> Callable:
+    """Build ``step(state, pts, generator, draws=None)``: the legacy
+    Point-MAE pretrain step, which trains the distillation teacher.
+
+    Augment (``scale_and_translate``), mask ``int(G * mask_ratio)`` groups
+    (Point-MAE's own count, not ``gm3d_num_mask``) at random or as a block
+    around a random center, the masked-reconstruction forward in train mode
+    (dropout, stochastic depth, BN batch statistics), the Chamfer loss,
+    backward and the optimizer. As in the JAX step, no fused attention is
+    entered and the patch embed runs in train mode: the step launches the
+    FPS and KNN kernels (one grouping; a block mask groups once more) and
+    no other.
+
+    ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and ``noise`` (B, G)
+    (the random mask's scores) or ``seed`` (B,) (the block mask's centers).
+    Returns ``(state, {"loss", "grad_norm"})``, 0-d tensors on the device.
+    """
+    if mask_type not in ("rand", "block"):
+        raise ValueError(f"mask_type must be 'rand' or 'block', got {mask_type!r}")
+    dev = resolve_device(device)
+    num_mask = int(model.num_group * mask_ratio)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, pts: torch.Tensor, generator: Optional[torch.Generator],
+             draws: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.student is not model or state.optimizer is not optimizer:
+            raise ValueError("the step was built for another model or optimizer")
+        draws = draws or {}
+        pts = pts.to(dev)
+        with torch.no_grad():
+            samples = (scale_and_translate(generator, pts, scale=draws.get("scale"),
+                                           shift=draws.get("shift")) if augment else pts)
+            batch = samples.shape[0]
+            if mask_type == "rand":
+                mask = random_mask(generator, batch, model.num_group, num_mask,
+                                   noise=draws.get("noise"), device=dev)
+            else:
+                centers = group_points(samples, model.num_group, model.group_size).center
+                mask = block_mask(generator, centers, num_mask, seed=draws.get("seed"))
+        model.train()
+        outs = model(samples, mask, num_mask, generator=generator)
+        loss = losses.pointmae_reconstruction_loss(outs["rebuild"], outs["gt"], loss_type)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    step.num_mask = num_mask
+    return step
 
 
 def gm3d_forward_distill(student: GM3DStudent, teacher: PointMAE, samples: torch.Tensor,
@@ -251,7 +309,6 @@ def _not_ported(name: str):
     return raiser
 
 
-make_pointmae_train_step = _not_ported("make_pointmae_train_step")
 make_m2ae_train_step = _not_ported("make_m2ae_train_step")
 make_m2ae_gm3d_train_step = _not_ported("make_m2ae_gm3d_train_step")
 make_probe_step = _not_ported("make_probe_step")

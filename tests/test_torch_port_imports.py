@@ -43,6 +43,13 @@ PRETRAIN_CLI_MODULES = {
 }
 
 
+# checkpoints, the asynchronous writer, preemption and tracing
+CKPT_MODULES = {
+    "gm3d_tpu_torch.ckpt.checkpoint", "gm3d_tpu_torch.ckpt.async_writer",
+    "gm3d_tpu_torch.utils.preempt", "gm3d_tpu_torch.utils.profiling",
+}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -55,7 +62,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
     assert int(lines["IMPORTED"]) >= 48
-    assert PRETRAIN_CLI_MODULES <= set(lines["NAMES"].split())
+    assert PRETRAIN_CLI_MODULES | CKPT_MODULES <= set(lines["NAMES"].split())
     assert lines["FOREIGN"] == "[]"
 
 
@@ -71,6 +78,17 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             if pattern.search(line) and not line.lstrip().startswith("#"):
                 hits.append(f"{path.relative_to(REPO)}:{no}: {line.strip()}")
     assert not hits, "\n".join(hits)
+
+
+def test_the_converter_stays_outside_the_port():
+    """``tools/orbax_to_torch.py`` needs JAX and orbax; nothing of the port
+    imports it, and it is not inside the package."""
+    converter = REPO / "tools" / "orbax_to_torch.py"
+    assert "from gm3d_tpu.ckpt import restore_raw" in converter.read_text()
+    assert not (PKG / "tools").exists()
+    pattern = re.compile(r"^\s*(import|from)\s+(tools|orbax_to_torch)\b", re.M)
+    for path in sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_kernel_sources_ship_with_the_package():
