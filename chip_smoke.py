@@ -49,12 +49,27 @@ Phases, each printing one JSON line when it ends:
               for bit; the state's size, the snapshot's device time and
               memory, a synchronous save's wall time, and the CLI's clouds per
               second with saves every two steps, inline and in the background
+  probe       the CLI's SVM probe at full width: two epochs with the probe in
+              the background (the default), with ``--sync_probe``, and with
+              ``--sync_probe --classification``; each epoch's ``val_svm_acc``,
+              ``ckpt/best`` and ``best_metrics.json``, ``loss_cls`` and
+              ``acc_cls``, the probe's FPS and KNN launches, its extraction and
+              fit times and solver iterations, clouds per second and wall time
+              of each run; then the linear SVC alone at ModelNet40's size
+              (9,843 x 384 training features, 2,468 test ones, 40 classes, from
+              ``--seed``) on the card and on the CPU: equal predictions,
+              decision values within ``SVC_DEC_TOL``, wall time, peak memory
+
+The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
+``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
+the probe's.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases env,build,train`` (development only) runs some of the list and
-prints no result line.
+prints no result line. ``--seed`` (default 0) draws the phase ``probe``'s
+features.
 """
 
 from __future__ import annotations
@@ -63,7 +78,9 @@ import argparse
 import io
 import itertools
 import json
+import logging
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -84,10 +101,12 @@ if not torch.cuda.is_available():
 
 from gm3d_tpu_torch.ckpt.async_writer import (AsyncCheckpointWriter, device_snapshot,  # noqa: E402
                                               tensors_of)
-from gm3d_tpu_torch.ckpt.checkpoint import (capture, latest_step, load_loader_state,  # noqa: E402
+from gm3d_tpu_torch.ckpt.checkpoint import (all_steps, capture, latest_step,  # noqa: E402
+                                            load_best_metrics, load_loader_state,
                                             restore_checkpoint, restore_raw, save_checkpoint)
 from gm3d_tpu_torch.cli import export_model  # noqa: E402
 from gm3d_tpu_torch.cli import pretrain as pretrain_cli  # noqa: E402
+from gm3d_tpu_torch.eval import linear_svc  # noqa: E402
 from gm3d_tpu_torch.ops import _build  # noqa: E402
 from gm3d_tpu_torch.models.blocks import PatchEncoder  # noqa: E402
 from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
@@ -920,7 +939,20 @@ def phase_train(env: dict) -> dict:
 # the CLI's run: 1024 synthetic clouds in batches of 256, two epochs of 4 steps
 CLI_SAMPLES, CLI_EPOCHS = 1024, 2
 CLI_STEPS_PER_EPOCH = CLI_SAMPLES // TRAIN_BATCH
-CLI_RECORD_KEYS = set(METRIC_KEYS) | {"epoch", "time", "lr", "steps", "clouds_per_sec"}
+CLI_RECORD_KEYS = set(METRIC_KEYS) | {"epoch", "time", "lr", "steps", "clouds_per_sec",
+                                      "val_svm_acc"}
+# the SVM probe after each epoch (--val_freq 1, the default): the student's encoder
+# over the synthetic SVM sets (512 and 256 labelled clouds, make_loaders) in
+# batches of twice the train batch, one FPS and one KNN launch a batch
+PROBE_BATCHES = -(-(CLI_SAMPLES // 2) // (2 * TRAIN_BATCH)) + -(-(CLI_SAMPLES // 4)
+                                                                // (2 * TRAIN_BATCH))
+PROBE_LAUNCHES = {"fps": PROBE_BATCHES, "knn": PROBE_BATCHES, "patch_embed": 0,
+                  "attention_fwd": 0, "attention_bwd": 0}
+
+
+def with_probes(per_step: dict, steps: int, probes: int) -> dict:
+    """A CLI run's launch counts: its train steps' and its SVM probes'."""
+    return {k: v * steps + PROBE_LAUNCHES[k] * probes for k, v in per_step.items()}
 
 
 def phase_pretrain_cli(env: dict, trained: dict | None) -> dict:
@@ -950,7 +982,7 @@ def phase_pretrain_cli(env: dict, trained: dict | None) -> dict:
         check(abs(r["lr"] - want_lr) <= 1e-12 * want_lr, (r["lr"], want_lr))
         check(f"epoch {r['epoch']}: loss=" in text_log, "pretrain.log lacks an epoch line")
     steps = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
-    want_launches = {k: v * steps for k, v in LAUNCHES_PER_STEP.items()}
+    want_launches = with_probes(LAUNCHES_PER_STEP, steps, CLI_EPOCHS)
     check(launches == want_launches, f"launches {launches}, expected {want_launches}")
     cli_rate = log[-1]["clouds_per_sec"]
     res = {"phase": "pretrain_cli", "epochs": CLI_EPOCHS, "steps": steps,
@@ -971,7 +1003,7 @@ GM3D_CONFIG = os.path.join(ROOT, "configs", "pointmae", "config.yaml")
 TEACHER_LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
                              "attention_bwd": 0}
 TEACHER_RECORD_KEYS = set(POINTMAE_METRIC_KEYS) | {"epoch", "time", "lr", "steps",
-                                                   "clouds_per_sec"}
+                                                   "clouds_per_sec", "val_svm_acc"}
 
 
 def _cli_flags(out: str, epochs: int = CLI_EPOCHS) -> list:
@@ -1008,7 +1040,7 @@ def phase_teacher(env: dict, tmp: str) -> dict:
         trained = restore_raw(ckpt, end)["optimizer"]["param_groups"][0]["lr"]
         check(trained == sched(end - 1) == 1e-6, (r["epoch"], trained))
     steps = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
-    want = {k: v * steps for k, v in TEACHER_LAUNCHES_PER_STEP.items()}
+    want = with_probes(TEACHER_LAUNCHES_PER_STEP, steps, CLI_EPOCHS)
     check(launches == want, f"teacher launches {launches}, expected {want}")
     check(latest_step(ckpt) == steps, f"latest teacher step {latest_step(ckpt)}")
 
@@ -1032,7 +1064,7 @@ def phase_teacher(env: dict, tmp: str) -> dict:
         gm3d_launches = pp.read_launches()
     finally:
         pretrain_cli.load_teacher_checkpoint = load
-    want = {k: v * CLI_STEPS_PER_EPOCH for k, v in LAUNCHES_PER_STEP.items()}
+    want = with_probes(LAUNCHES_PER_STEP, CLI_STEPS_PER_EPOCH, 1)
     check(gm3d_launches == want, f"GM3D launches {gm3d_launches}, expected {want}")
     check(len(gm3d) == 1 and all(np.isfinite(gm3d[0][k]) for k in CLI_RECORD_KEYS), gm3d)
     saved = restore_raw(ckpt, map_location=DEV)["model"]
@@ -1189,15 +1221,161 @@ def phase_resume(env: dict, tmp: str) -> None:
           "tmp_free_bytes": shutil.disk_usage(tmp).free, "gpu": env["gpu"]})
 
 
+# the SVC alone at ModelNet40's size: clouds per class of its official split
+# (modelnet40_train.txt / modelnet40_test.txt), features 384 wide (the encoder's
+# width), class means N(0, SVC_SEPARATION^2) apart, unit noise: about the
+# accuracy a pretrained encoder's features reach there
+MODELNET40_TRAIN = (626, 106, 515, 173, 572, 335, 64, 197, 889, 167, 79, 138, 200, 109, 200,
+                    149, 171, 155, 145, 124, 149, 284, 465, 200, 88, 231, 240, 104, 115, 128,
+                    680, 124, 90, 392, 163, 344, 267, 475, 87, 103)
+MODELNET40_TEST = (100, 50, 100, 20, 100, 100, 20, 100, 100, 20, 20, 20, 86, 20, 86, 20, 100,
+                   100, 20, 20, 20, 100, 100, 86, 20, 100, 100, 20, 100, 20, 100, 20, 20, 100,
+                   20, 100, 100, 100, 20, 20)
+SVC_DIM, SVC_SEPARATION = 384, 0.22
+# card and CPU run the same solver to a KKT gap of 1e-5 each; their Gram matrices
+# differ in the last bits, so their paths may part at a near-tie
+SVC_DEC_TOL = 1e-4
+PROBE_LINE = re.compile(r"svm probe of epoch (\d+): acc ([0-9.]+); (.*)")
+
+
+def _fresh_cli_logger() -> None:
+    """The CLI configures its "gm3d" logger once a process (its first run's
+    ``pretrain.log``): drop that, so that the next run writes its own."""
+    logger = logging.getLogger("gm3d")
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    logger.__dict__.pop("_gm3d_configured", None)
+
+
+def _probe_run(tmp: str, name: str, extra: list) -> dict:
+    """The GM3D CLI at full width for two epochs, probing after each."""
+    out = os.path.join(tmp, name)
+    classification = "--classification" in extra
+    _fresh_cli_logger()
+    pp.reset_launches()  # this run's path: every launch count starts from 0 here
+    t0 = time.perf_counter()
+    records = pretrain_cli.main(["--config", GM3D_CONFIG, "--val_freq", "1", *extra,
+                                 *_cli_flags(out)])
+    wall_s = time.perf_counter() - t0
+    launches = pp.read_launches()
+    log = _read_log(out)
+    check(log == records, f"{name}: log.txt differs from the records main() returned")
+    check([r["epoch"] for r in log] == list(range(CLI_EPOCHS)), log)
+    keys = CLI_RECORD_KEYS | ({"loss_cls", "acc_cls"} if classification else set())
+    for r in log:
+        check(set(r) == keys, f"{name}: log.txt keys {sorted(r)}")
+        check(all(np.isfinite(r[k]) for k in keys), r)
+        check(0.0 <= r["val_svm_acc"] <= 1.0, r)
+    accs = [r["val_svm_acc"] for r in log]
+    ckpt = os.path.join(out, "ckpt")
+    best_step = (accs.index(max(accs)) + 1) * CLI_STEPS_PER_EPOCH
+    check(load_best_metrics(ckpt) == {"best": max(accs)}, load_best_metrics(ckpt))
+    check(all_steps(os.path.join(ckpt, "best")) == [best_step],
+          f"{name}: ckpt/best {all_steps(os.path.join(ckpt, 'best'))}, expected [{best_step}]")
+    with open(os.path.join(ckpt, "best", str(best_step), "metrics.json")) as f:
+        check(json.load(f) == {"svm_acc": max(accs)}, f"{name}: ckpt/best metrics")
+    steps = CLI_EPOCHS * CLI_STEPS_PER_EPOCH
+    # the classification probe's encoder groups each of its batches: one FPS, one KNN
+    per_step = dict(LAUNCHES_PER_STEP)
+    if classification:
+        per_step.update(fps=per_step["fps"] + 1, knn=per_step["knn"] + 1)
+    want = with_probes(per_step, steps, CLI_EPOCHS)
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    with open(os.path.join(out, "pretrain.log")) as f:
+        probes = [m for m in map(PROBE_LINE.search, f) if m]
+    check([int(m.group(1)) for m in probes] == list(range(CLI_EPOCHS)), "probe log lines")
+    stats = [{"epoch": int(m.group(1)), "acc": float(m.group(2)),
+              **{k: float(v) for k, v in (kv.split(" ") for kv in m.group(3).split(", "))}}
+             for m in probes]
+    return {"records": log, "launches": launches,
+            "probe_launches_fps_knn": [launches[k] - per_step[k] * steps
+                                       for k in ("fps", "knn")],
+            "probes": stats, "clouds_per_sec": [r["clouds_per_sec"] for r in log],
+            "wall_s": wall_s}
+
+
+def _modelnet40_sized_features(seed: int):
+    """Separable class means plus unit noise, drawn on the CPU from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    means = torch.randn((len(MODELNET40_TRAIN), SVC_DIM), generator=gen,
+                        dtype=torch.float64) * SVC_SEPARATION
+
+    def draw(counts):
+        labels = torch.repeat_interleave(torch.arange(len(counts)), torch.tensor(counts))
+        noise = torch.randn((len(labels), SVC_DIM), generator=gen, dtype=torch.float64)
+        return (means[labels] + noise).to(torch.float32), labels
+
+    return draw(MODELNET40_TRAIN) + draw(MODELNET40_TEST)
+
+
+def _fit(x, y, xt):
+    """Fit, predict and score on the device of ``x``; wall time to the answer."""
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = linear_svc.fit_linear_svc(x, y)
+    dec = linear_svc.ovo_decision_values(model, xt)
+    pred = linear_svc.predict(model, xt)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    return model, dec.cpu(), pred.cpu(), time.perf_counter() - t0
+
+
+def phase_probe(env: dict, tmp: str, seed: int) -> dict:
+    """The CLI's SVM probe at full width, then its SVC at ModelNet40's size."""
+    runs = {"background": _probe_run(tmp, "background", []),
+            "sync": _probe_run(tmp, "sync", ["--sync_probe"]),
+            "sync_classification": _probe_run(tmp, "sync_classification",
+                                              ["--sync_probe", "--classification"])}
+    check(all(min(r["probe_launches_fps_knn"]) > 0 for r in runs.values()),
+          "the probe launched no FPS or KNN kernel")
+
+    x, y, xt, yt = _modelnet40_sized_features(seed)
+    check(x.shape == (9843, SVC_DIM) and xt.shape == (2468, SVC_DIM), (x.shape, xt.shape))
+    xg, yg, xtg = x.to(DEV), y.to(DEV), xt.to(DEV)
+    _fit(xg[::16], yg[::16], xtg[:8])  # every class, a sixteenth: the solver's launches warm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    card, dec_card, pred_card, card_s = _fit(xg, yg, xtg)
+    peak = torch.cuda.max_memory_allocated(DEV) - base
+    cpu, dec_cpu, pred_cpu, cpu_s = _fit(x, y, xt)
+    dec_err = float((dec_card - dec_cpu).abs().max())
+    check(torch.equal(pred_card, pred_cpu),
+          f"card and CPU predict {int((pred_card != pred_cpu).sum())} test clouds apart")
+    check(dec_err <= SVC_DEC_TOL, f"decision values {dec_err} apart, tolerance {SVC_DEC_TOL}")
+    for model in (card, cpu):
+        check(float(model.gap.max()) < linear_svc.TOL, float(model.gap.max()))
+    res = {"phase": "probe", "cli_runs": runs,
+           "svc_modelnet40_size": {
+               "train": list(x.shape), "test": list(xt.shape), "classes": len(MODELNET40_TRAIN),
+               "pairs": int(card.coef.shape[0]), "seed": seed, "separation": SVC_SEPARATION,
+               "card_wall_s": card_s, "cpu_wall_s": cpu_s, "cpu_threads": torch.get_num_threads(),
+               "card_peak_extra_bytes": peak,
+               "iterations_max_card": int(card.iterations.max()),
+               "iterations_mean_card": float(card.iterations.float().mean()),
+               "iterations_max_cpu": int(cpu.iterations.max()),
+               "accuracy": float((pred_card == yt).float().mean()),
+               "predictions_equal": True, "max_abs_decision_diff": dec_err,
+               "tol": SVC_DEC_TOL},
+           "gpu": env["gpu"]}
+    emit(res)
+    return {name: run["launches"] for name, run in runs.items()}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume")
+          "resume", "probe")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list out of: " + ",".join(PHASES))
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="draws the features of the phase probe's SVC fit")
+    cli_args = ap.parse_args()
+    phases = cli_args.phases.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1219,6 +1397,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         if "resume" in phases:
             phase_resume(env, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        probed = phase_probe(env, tmp, cli_args.seed) if "probe" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -1231,6 +1411,8 @@ def main() -> None:
         kern["launches_pretrain_cli"] = cli["launches"][kern["name"]]
         # the teacher's step launches FPS and KNN only, as the JAX step routes it
         kern["launches_teacher"] = taught["launches"][kern["name"]]
+        # with the SVM probe in the background, the CLI's default
+        kern["launches_probe_background"] = probed["background"][kern["name"]]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

@@ -71,6 +71,16 @@ POINT_TRANSFORMER_MAP = {
     "cls_head_finetune.8": ("cls_head_finetune/fc3", "linear"),
 }
 
+# the pretrain-time supervised probe (``--classification``)
+CLASSIFIER_MAP = {
+    "norm": ("norm", "ln"),
+    "head.0": ("head/fc1", "linear"),
+    "head.1": ("head/bn1", "bn"),
+    "head.4": ("head/fc2", "linear"),
+    "head.5": ("head/bn2", "bn"),
+    "head.8": ("head/fc3", "linear"),
+}
+
 POINT_MAE_MAP = {
     **_under("MAE_encoder", {**_COMMON_ENCODER, "norm": ("norm", "ln")}),
     "decoder_pos_embed.0": ("decoder_pos_embed/fc1", "linear"),

@@ -5,11 +5,21 @@ optimizer, ``--learn_feature_loss`` ``dino``, ``ema`` or ``none``) and
 ``--model_family pointmae`` (the teacher's pretrain, the legacy runner's
 recipe), on synthetic clouds or on-disk ShapeNet-55. Same flags, same log
 files (``pretrain.log``, the JSON-lines ``log.txt``, ``tfboard/``) and the
-same keys in them, less ``val_svm_acc``; the same checkpoints in
-``<output_dir>/ckpt`` (``ckpt/checkpoint.py``): a rolling save each epoch,
-``--save_steps`` within one, ``--save_interval`` snapshots under
-``ckpt/epochs``, written from a background thread unless ``--sync_save``;
-``--resume``; a SIGTERM saves and exits 0. The teacher, then GM3D::
+same keys in them; the same checkpoints in ``<output_dir>/ckpt``
+(``ckpt/checkpoint.py``): a rolling save each epoch, ``--save_steps`` within
+one, ``--save_interval`` snapshots under ``ckpt/epochs``, written from a
+background thread unless ``--sync_save``; ``--resume``; a SIGTERM saves and
+exits 0.
+
+Every ``--val_freq`` epochs and after the last one, the linear-SVM probe
+(``eval/svm.py``) scores the student's pooled features; its accuracy is the
+epoch's ``val_svm_acc``, and a new best is saved as ``ckpt/best`` with
+``best_metrics.json``. By default the probe runs in a background thread on a
+device copy of the state taken at the epoch's end, while the next epoch
+trains (the epoch's record is written when its probe ends);
+``--sync_probe`` runs it inline. ``--classification`` trains a supervised
+probe (``Classifier``) beside the student, one step for each train step, and
+logs ``loss_cls`` and ``acc_cls``. The teacher, then GM3D::
 
   python -m gm3d_tpu_torch.cli.pretrain --config configs/pointmae/config_m.yaml \\
       --model_family pointmae --synthetic --epochs 2 --output_dir /tmp/teacher
@@ -18,26 +28,29 @@ same keys in them, less ``val_svm_acc``; the same checkpoints in
 
 Runs on the GPU unless ``--device cpu`` is given. Every flag of the JAX CLI
 is accepted; those whose path is not ported yet raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item (``NOT_PORTED``). Not done yet, and said once
-at start-up: the SVM probe, with ``ckpt/best`` (item 1c).
+naming their ``ROADMAP.md`` item (``NOT_PORTED``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
 import torch
 
-from gm3d_tpu_torch.ckpt.async_writer import AsyncCheckpointWriter
+from gm3d_tpu_torch.ckpt.async_writer import AsyncCheckpointWriter, device_snapshot, tensors_of
 from gm3d_tpu_torch.ckpt.checkpoint import (
     latest_step,
     load_best_metrics,
     load_loader_state,
     restore_checkpoint,
     restore_raw,
+    save_best_metrics,
     save_checkpoint,
     save_loader_state,
 )
@@ -46,15 +59,19 @@ from gm3d_tpu_torch.cli.common import (
     base_parser,
     compute_dtype,
     load_config,
-    make_train_loader,
+    make_loaders,
+    resolve_batch_floor,
     setup_mesh,
 )
 from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
 from gm3d_tpu_torch.data.prefetch import device_prefetch
+from gm3d_tpu_torch.eval.svm import svm_probe
 from gm3d_tpu_torch.masking import keep_ratio_schedule
 from gm3d_tpu_torch.models import GM3DStudent
+from gm3d_tpu_torch.models.point_transformer import Classifier
 from gm3d_tpu_torch.train.optim import (
     GM3D_COORD_HEAD,
+    build_adamw,
     build_gm3d_shared_optimizer,
     build_legacy_adamw,
 )
@@ -63,6 +80,8 @@ from gm3d_tpu_torch.train.pretrain import (
     POINTMAE_METRIC_KEYS,
     make_gm3d_train_step,
     make_pointmae_train_step,
+    make_probe_step,
+    probe_draws,
 )
 from gm3d_tpu_torch.train.schedules import (
     cosine_warmup_schedule,
@@ -113,8 +132,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--steps_per_dispatch", type=int, default=8,
                    help="accepted; the steps run one by one (eager PyTorch has no "
                         "dispatch to amortise; the draws are those of one step each)")
-    p.add_argument("--classification", action="store_true")
-    p.add_argument("--sync_probe", action="store_true")
+    p.add_argument("--classification", action="store_true",
+                   help="train a supervised Classifier probe alongside (reference "
+                        "--classification): one step on a svm_train batch for each train "
+                        "step; forces --sync_probe")
+    p.add_argument("--sync_probe", action="store_true",
+                   help="run the SVM probe inline at the epoch's end. The default runs it "
+                        "in a background thread on a device copy of the state while the "
+                        "next epoch trains; the epoch's record is written when it ends")
     p.add_argument("--sync_bn", default=True, action=argparse.BooleanOptionalAction,
                    help="a no-op on one device")
     p.add_argument("--save_interval", type=int, default=100,
@@ -135,12 +160,10 @@ NOT_PORTED = (
     (lambda a: a.model_family in ("m2ae", "m2ae_gm3d"), "--model_family m2ae / m2ae_gm3d",
      "3"),
     (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
-    (lambda a: a.classification, "--classification", "1c"),
-    (lambda a: a.sync_probe, "--sync_probe", "1c"),
-    (lambda a: a.student_variant == "legacy", "--student_variant legacy", "1c"),
-    (lambda a: a.accum_iter > 1, "--accum_iter above 1", "1c"),
-    (lambda a: not a.shared_opt, "--no-shared_opt", "1c"),
-    (lambda a: a.bf16, "--bf16", "1c"),
+    (lambda a: a.student_variant == "legacy", "--student_variant legacy", "1d"),
+    (lambda a: a.accum_iter > 1, "--accum_iter above 1", "1d"),
+    (lambda a: not a.shared_opt, "--no-shared_opt", "1d"),
+    (lambda a: a.bf16, "--bf16", "1d"),
     (lambda a: a.quantize_ema, "--quantize_ema", "9"),
 )
 
@@ -185,6 +208,14 @@ def build_pointmae(args, cfg, dtype: torch.dtype):
     model = build_model_from_cfg(cfg["model"], dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(1))
     return model
+
+
+def build_classifier(args, dim: int, dtype: torch.dtype) -> Classifier:
+    """The ``--classification`` probe over ``dim``-wide encoder features, 40
+    classes; weights drawn from a generator seeded 5 (the JAX CLI's init key)."""
+    classifier = Classifier(dim=dim, cls_dim=40, dtype=dtype)
+    classifier.reset_parameters(torch.Generator().manual_seed(5))
+    return classifier
 
 
 def load_teacher_checkpoint(teacher: torch.nn.Module, ckpt_dir: str, logger) -> None:
@@ -249,15 +280,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     logger = get_logger("gm3d", os.path.join(args.output_dir, "pretrain.log"))
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
     tb = ScalarWriter(os.path.join(args.output_dir, "tfboard"))
-    logger.warning(
-        "not done by this CLI yet: the SVM probe with ckpt/best and best_metrics.json "
-        "(ROADMAP.md Queue 1 item 1c; --val_freq does nothing); --sync_bn is a no-op on one "
-        "device; --steps_per_dispatch runs its steps one by one")
+    logger.warning("--sync_bn is a no-op on one device; --steps_per_dispatch runs its "
+                   "steps one by one")
     dtype = compute_dtype(args)
     epochs = cfg["max_epoch"]
     batch = cfg["total_bs"]
-    # the SVM loaders (make_loaders) come with the probe, item 1c
-    train_loader = make_train_loader(cfg, args)
+    train_loader, svm_train, svm_test = make_loaders(cfg, args)
     steps_per_epoch = max(len(train_loader), 1)
 
     lr = effective_lr(args.blr, batch, args.accum_iter)
@@ -287,6 +315,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                          args.shared_learnable_tokens, args.relative,
                                          distill_mode=args.learn_feature_loss, device=dev)
         keys = METRIC_KEYS
+        feat_model = student
 
         def run_step(state, pts, generator, scalars):
             draws = step_draws(generator, pts.shape[0], student.num_group)
@@ -306,29 +335,44 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             model, optimizer, tc["mask_ratio"] or 0.6, tc.get("mask_type", "rand"),
             cfg["model"].get("loss", "cdl2"), device=dev)
         keys = POINTMAE_METRIC_KEYS
+        feat_model = model
 
         def run_step(state, pts, generator, scalars):
             draws = step_draws(generator, pts.shape[0], model.num_group)
             return pointmae_step(state, pts, generator, draws=draws)
 
+    # the optional supervised probe (reference --classification), its own optimizer
+    probe_state = probe_step = None
+    if args.classification:
+        classifier = build_classifier(args, feat_model.trans_dim, dtype).to(dev)
+        probe_optimizer = build_adamw(classifier.named_parameters(), 1e-3)
+        probe_state = create_train_state(classifier, probe_optimizer)
+        probe_step = make_probe_step(feat_model, classifier, probe_optimizer, device=dev)
+        logger.info("--classification forces --steps_per_dispatch 1 and --sync_probe")
+
     ckpt_dir = os.path.join(args.output_dir, "ckpt")
     # the random sequence starts again from --seed on --resume, as the JAX CLI's key does
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     writer = AsyncCheckpointWriter(enabled=not args.sync_save)
+    records = []
 
     def emit_epoch(stats):
         """The epoch's log line, JSONL record and TensorBoard scalars
-        (reference tags, engine_pretrain...:306-315)."""
+        (reference tags, engine_pretrain...:306-315), once an epoch, one
+        epoch late where its SVM probe ran in the background."""
         ep = stats["epoch"]
         logger.info(f"epoch {ep}: " + " ".join(
             f"{k}={v:.5g}" for k, v in stats.items() if isinstance(v, (int, float))))
         jsonl.write(stats)
+        records.append(stats)
         tb.add_scalar("train_loss", stats.get("loss", 0.0), ep)
         tb.add_scalar("train_loss_MSE", stats.get("loss_mse", 0.0), ep)
         tb.add_scalar("train_loss_Chfr", stats.get("loss_chfr", 0.0), ep)
         tb.add_scalar("train_loss_learn", stats.get("loss_learn", 0.0), ep)
         tb.add_scalar("lr", stats.get("lr", 0.0), ep)
         tb.add_scalar("grad_norm", stats.get("grad_norm", 0.0), ep)
+        if "val_svm_acc" in stats:
+            tb.add_scalar("Metric/ACC", stats["val_svm_acc"], ep)
         tb.flush()
 
     def submit_save(step, token):
@@ -342,7 +386,88 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         save_checkpoint(ckpt_dir, state, state.step)
         save_loader_state(ckpt_dir, token)
 
-    records = []
+    best_acc = 0.0
+    npoints = cfg.get("npoints", 1024)
+
+    def record_probe(stats, acc, step, statelike, probe_stats):
+        """Fold a finished probe into its epoch's record; a new best goes to
+        ``ckpt/best`` with ``best_metrics.json`` (``*_temp_best.pth``,
+        ``main_pretrain.py:591-611``)."""
+        nonlocal best_acc
+        stats["val_svm_acc"] = acc
+        logger.info(f"svm probe of epoch {stats['epoch']}: acc {acc:.4f}; " + ", ".join(
+            f"{k} {v:.6g}" for k, v in probe_stats.items()))
+        if acc > best_acc:
+            best_acc = acc
+            writer.submit(statelike, lambda s, step=step, a=acc: (
+                save_checkpoint(os.path.join(ckpt_dir, "best"), s, step,
+                                metrics={"svm_acc": a}, max_to_keep=1),
+                save_best_metrics(ckpt_dir, {"best": a})))
+
+    # The probe runs in a background thread on a device copy of the state taken
+    # at the epoch's end, so the next epoch trains meanwhile. --classification
+    # makes it synchronous: its steps and the probe would both read svm_train.
+    probe_async = not args.sync_probe and probe_step is None
+    # what the background probe loads each snapshot into, and the stream it runs on
+    probe_model = copy.deepcopy(feat_model).requires_grad_(False) if probe_async else None
+    probe_stream = torch.cuda.Stream(dev) if probe_async and dev.type == "cuda" else None
+    snapshot_buffers = None
+    pending_probe = None  # {"thread", "holder", "stats", "step", "snap"}
+
+    def start_probe(stats, step):
+        nonlocal pending_probe, snapshot_buffers
+        # the reference validates the STUDENT, not the EMA (main_pretrain.py:497-498)
+        snap = device_snapshot(state, snapshot_buffers)
+        snapshot_buffers = tensors_of(snap)
+        ready = None
+        if probe_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+        holder = {"stats": {}}
+
+        def run():
+            try:
+                ctx = contextlib.nullcontext()
+                if probe_stream is not None:
+                    probe_stream.wait_event(ready)
+                    ctx = torch.cuda.stream(probe_stream)
+                with ctx:
+                    probe_model.load_state_dict(snap["model"])
+                    holder["acc"] = svm_probe(probe_model, svm_train, svm_test, npoints,
+                                              resolve_batch_floor(args), stats=holder["stats"])
+            except BaseException as e:  # noqa: BLE001 - re-raised when the probe is joined
+                holder["err"] = e
+
+        thread = threading.Thread(target=run, name="gm3d-svm-probe", daemon=True)
+        thread.start()
+        pending_probe = {"thread": thread, "holder": holder, "stats": stats, "step": step,
+                         "snap": snap}
+
+    def finish_pending_probe():
+        """Join the background probe, record it and write its epoch's record."""
+        nonlocal pending_probe
+        if pending_probe is None:
+            return
+        p, pending_probe = pending_probe, None
+        p["thread"].join()
+        if "err" in p["holder"]:
+            raise RuntimeError("SVM probe failed") from p["holder"]["err"]
+        record_probe(p["stats"], p["holder"]["acc"], p["step"], p["snap"], p["holder"]["stats"])
+        emit_epoch(p["stats"])
+
+    def finish_probe_before_exit():
+        # a mid-epoch resume never probes the previous epoch again: write its
+        # record before the preemption save, but never let it block that save
+        try:
+            finish_pending_probe()
+        except RuntimeError:
+            logger.warning("pending probe failed during preemption; its epoch row is dropped",
+                           exc_info=True)
+
+    def read_probe_metrics(meter, pmetrics):
+        values = torch.stack([pmetrics["loss_cls"], pmetrics["acc_cls"]]).tolist()
+        meter.update(loss_cls=values[0], acc_cls=values[1])
+
     prof_remaining = args.profile_steps if args.profile_dir else 0
     prof = start_trace(args.profile_dir) if prof_remaining else None
     # SIGTERM: checkpoint at the next step boundary and exit 0 (utils/preempt.py)
@@ -353,9 +478,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         if args.resume:
             if restore_checkpoint(ckpt_dir, state) is not None:
                 # best-so-far comes back too, so that a worse epoch after the
-                # resume cannot overwrite ckpt/best (written with item 1c)
-                best = float(load_best_metrics(ckpt_dir).get("best", 0.0))
-                logger.info(f"resumed from step {state.step} (best svm {best:.4f})")
+                # resume cannot overwrite ckpt/best
+                best_acc = float(load_best_metrics(ckpt_dir).get("best", 0.0))
+                logger.info(f"resumed from step {state.step} (best svm {best_acc:.4f})")
             start_epoch = state.step // steps_per_epoch
             # a mid-epoch save names the exact next batch
             loader_token = load_loader_state(ckpt_dir)
@@ -367,6 +492,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             meter = MetricLogger()
             t0 = time.time()
             scalars = epoch_scalars(args, epoch, epochs) if args.model_family == "gm3d" else None
+            probe_iter = iter(svm_train) if probe_step is not None else None
+            pending_pmetrics = None
 
             def drain(metrics):
                 # the host read: waits for that step; one copy for all values
@@ -395,22 +522,51 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                     dm.flush()
                     submit_save(state.step, position())
                     last_saved_step = state.step
-                guard.exit_if_triggered(lambda: (dm.flush(), save_now(position())))
+                guard.exit_if_triggered(
+                    lambda: (finish_probe_before_exit(), dm.flush(), save_now(position())))
                 if prof_remaining:
                     prof_remaining -= 1
                     if prof_remaining == 0:
                         dm.flush()
                         logger.info("profiler trace written to "
                                     f"{stop_trace(prof, args.profile_dir)}")
+                if probe_step is not None:
+                    try:
+                        cls_pts, cls_labels = next(probe_iter)
+                    except StopIteration:
+                        probe_iter = iter(svm_train)
+                        cls_pts, cls_labels = next(probe_iter)
+                    draws = probe_draws(generator, len(cls_labels))
+                    probe_state, pmetrics = probe_step(
+                        probe_state, torch.as_tensor(cls_pts), torch.as_tensor(cls_labels),
+                        generator, draws=draws)
+                    # read one step behind, like the train metrics
+                    if pending_pmetrics is not None:
+                        read_probe_metrics(meter, pending_pmetrics)
+                    pending_pmetrics = pmetrics
             dm.flush()
+            if pending_pmetrics is not None:
+                read_probe_metrics(meter, pending_pmetrics)
             # every step of this epoch is trained: a signal here resumes at epoch + 1
-            guard.exit_if_triggered(lambda: save_now({"epoch": epoch + 1, "batch": 0}))
+            guard.exit_if_triggered(lambda: (finish_probe_before_exit(),
+                                             save_now({"epoch": epoch + 1, "batch": 0})))
             stats = meter.global_avgs()
             epoch_time = time.time() - t0
             n_steps = meter.meters["loss"].count if "loss" in meter.meters else 0
             stats.update(epoch=epoch, time=round(epoch_time, 2),
                          lr=float(sched(state.step)), steps=n_steps,
                          clouds_per_sec=round(n_steps * batch / max(epoch_time, 1e-9), 1))
+            # the previous epoch's probe ends first: its record precedes this
+            # epoch's, and the best accuracy is current before this epoch's probe
+            finish_pending_probe()
+            if (epoch + 1) % args.val_freq == 0 or epoch == epochs - 1:
+                if probe_async:
+                    start_probe(stats, state.step)
+                else:
+                    probe_stats = {}
+                    acc = svm_probe(feat_model, svm_train, svm_test, npoints,
+                                    resolve_batch_floor(args), stats=probe_stats)
+                    record_probe(stats, acc, state.step, state, probe_stats)
             # the rolling save of the epoch, its sidecar at the next epoch's start
             submit_save(state.step, {"epoch": epoch + 1, "batch": 0})
             last_saved_step = state.step
@@ -418,18 +574,23 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                 step = state.step
                 writer.submit(state, lambda s, step=step: save_checkpoint(
                     os.path.join(ckpt_dir, "epochs"), s, step, max_to_keep=1000))
-            emit_epoch(stats)
-            records.append(stats)
+            if pending_probe is None:
+                emit_epoch(stats)
+        finish_pending_probe()  # the last epoch's probe and record
     finally:
-        # on ANY exit: the save in flight is of a NaN-checked state, commit it
+        # on ANY exit: the saves in flight are of NaN-checked states, commit them
         writer.wait()
+        # on an error or a preemption a background probe's result is dropped
+        # (resume probes again); a daemon thread left running would race the exit
+        if pending_probe is not None:
+            pending_probe["thread"].join()
         guard.uninstall()
         tb.close()
     if prof_remaining:  # the run ended before --profile_steps steps
         stop_trace(prof, args.profile_dir)
     if latest_step(ckpt_dir) != state.step:  # a run with no epoch left to train
         save_checkpoint(ckpt_dir, state, state.step)
-    logger.info(f"done: {state.step} steps")
+    logger.info(f"done: {state.step} steps; best svm acc {best_acc:.4f}")
     return records
 
 

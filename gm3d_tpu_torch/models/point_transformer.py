@@ -35,6 +35,20 @@ class ClsHead(nn.Sequential):
             nn.Dropout(dropout),
             Dense(256, cls_dim, dtype=dtype))
 
+    def forward(self, x: torch.Tensor, dropout_masks=None) -> torch.Tensor:
+        """``dropout_masks``: two boolean keep masks (B, 256), one for each
+        dropout, used in train mode in place of the module's own draws (a
+        kept unit is scaled by 1 / (1 - p), as ``flax.linen.Dropout`` does)."""
+        if dropout_masks is None or not self.training:
+            return super().forward(x)
+        masks = iter(dropout_masks)
+        for layer in self:
+            if isinstance(layer, nn.Dropout):
+                x = torch.where(next(masks), x / (1.0 - layer.p), 0.0)
+            else:
+                x = layer(x)
+        return x
+
 
 class PointTransformer(nn.Module):
     """Classification fine-tune model: FPS+KNN group -> patch embed -> cls
@@ -88,7 +102,23 @@ class Classifier(nn.Module):
         super().__init__()
         self.norm = LayerNorm(dim, dtype=dtype)
         self.head = ClsHead(dim, cls_dim, dtype=dtype)
+        self.reset_parameters()
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """flax's defaults, as the JAX CLI initialises it: each dense kernel
+        LeCun normal (truncated at two deviations, variance 1 / fan-in), zero
+        biases, the norms at one and zero."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                # flax's truncated normal keeps the variance: the stddev is raised
+                std = (1.0 / m.in_features) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, feats: torch.Tensor, dropout_masks=None) -> torch.Tensor:
         x = self.norm(feats)
-        return self.head(x.mean(dim=1) + x.max(dim=1).values)
+        return self.head(x.mean(dim=1) + x.max(dim=1).values, dropout_masks)

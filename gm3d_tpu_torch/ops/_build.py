@@ -145,6 +145,17 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches.
+    Under a lock: the pretrain CLI's SVM probe thread launches the FPS and KNN
+    kernels while the training loop does, and ``+= 1`` is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check_launch(rc: int, name: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if rc != 0:

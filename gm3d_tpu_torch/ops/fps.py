@@ -158,7 +158,7 @@ def fps_indices(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
         rc = lib.gm3d_fps(xyz.data_ptr(), out.data_ptr(), batch, num_points,
                           n_samples, _block_threads(num_points), stream)
     _build.check_launch(rc, "fps")
-    fps_indices.launches += 1
+    _build.count_launch(fps_indices)
     return out
 
 

@@ -137,7 +137,7 @@ def fused_attention(x, wqkv, bqkv: Optional[torch.Tensor], wproj, bproj,
                 yacc.data_ptr(), y.data_ptr(), batch, length, dim, heads,
                 int(x.dtype == torch.bfloat16), stream)
         _build.check_launch(rc, "fused_attention")
-        fused_attention.launches += 1
+        _build.count_launch(fused_attention)
     return y
 
 
@@ -182,7 +182,7 @@ def fused_attention_backward(x, dy, wqkv, bqkv: Optional[torch.Tensor], wproj,
                 dwproj.data_ptr(), dwproj.stride(0), dwproj.stride(1), dbproj.data_ptr(),
                 batch, length, dim, heads, int(x.dtype == torch.bfloat16), stream)
         _build.check_launch(rc, "fused_attention_backward")
-        fused_attention_backward.launches += 1
+        _build.count_launch(fused_attention_backward)
     else:
         dx.zero_()
     wt = wqkv.dtype

@@ -273,7 +273,7 @@ def knn_indices(ref: torch.Tensor, query: torch.Tensor, k: int,
                               *_launch_geometry(batch, num_ref, num_query, k,
                                                 _sm_count(ref.device)), stream)
         _build.check_launch(rc, "knn")
-        knn_indices.launches += 1
+        _build.count_launch(knn_indices)
     if return_dist:
         return dist, idx
     return idx

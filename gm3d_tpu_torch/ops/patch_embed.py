@@ -150,7 +150,7 @@ def fused_patch_embed(neighborhood: torch.Tensor, params: PatchEmbedParams) -> t
                                       out.data_ptr(), total, group_size, groups_per_block,
                                       out_dim, stream)
         _build.check_launch(rc, "patch_embed")
-        fused_patch_embed.launches += 1
+        _build.count_launch(fused_patch_embed)
     return out
 
 

@@ -133,7 +133,7 @@ def tile_product(a: torch.Tensor, b: torch.Tensor, shared_a: bool = False,
             4 if wide_a else int(shared_a) + 2 * int(shared_b), int(chain),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(rc, "tile_product")
-    tile_product.launches += 1
+    _build.count_launch(tile_product)
     return out
 
 

@@ -1,8 +1,8 @@
-"""The pretrain steps: GM3D, and the Point-MAE teacher's.
+"""The pretrain steps: GM3D, the Point-MAE teacher's, and the supervised probe's.
 
 Port of ``gm3d_tpu/train/pretrain.py::gm3d_forward_distill``,
-``::make_gm3d_train_step`` in the default set-up (shared optimizer) and
-``::make_pointmae_train_step``. One GM3D step:
+``::make_gm3d_train_step`` in the default set-up (shared optimizer),
+``::make_pointmae_train_step`` and ``::make_probe_step``. One GM3D step:
 
   1. augment            (``scale_and_translate``)
   2. ONE grouping       (FPS + KNN kernels), shared by the three passes
@@ -311,4 +311,57 @@ def _not_ported(name: str):
 
 make_m2ae_train_step = _not_ported("make_m2ae_train_step")
 make_m2ae_gm3d_train_step = _not_ported("make_m2ae_gm3d_train_step")
-make_probe_step = _not_ported("make_probe_step")
+
+
+def probe_draws(generator: Optional[torch.Generator],
+                batch: int) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """One probe step's random draws: the keep masks (batch, 256) of the
+    classifier head's two dropouts (``ClsHead``: 256 wide, rate 0.5), each
+    unit kept with probability 0.5."""
+    dev = generator.device if generator is not None else None
+    return {"dropout": tuple(torch.rand((batch, 256), generator=generator, device=dev) < 0.5
+                             for _ in range(2))}
+
+
+def make_probe_step(feat_model: nn.Module, classifier: nn.Module,
+                    optimizer: torch.optim.Optimizer, device="cuda") -> Callable:
+    """Build ``step(probe_state, pts, labels, generator, draws=None)``: the
+    optional supervised probe trained during pretraining (``--classification``,
+    ``engine_pretrain_Classifier_SVM.py:120-137``).
+
+    The encoder's features (``feat_model.encode_features``, eval mode) are
+    computed without gradient, so the probe never moves the student; the
+    ``Classifier`` trains in train mode (BN batch statistics, its running
+    buffers updated, dropout on) under its own optimizer. ``draws`` may hold
+    ``dropout``, the head's two keep masks (``probe_draws``); otherwise they
+    are drawn from ``generator``. ``probe_state`` is a ``TrainState`` of the
+    classifier and ``optimizer``. Returns ``(probe_state, {"loss_cls",
+    "acc_cls"})``, 0-d tensors on the device, the accuracy in percent."""
+    dev = resolve_device(device)
+    params = [p for p in classifier.parameters() if p.requires_grad]
+
+    def step(probe_state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
+             generator: Optional[torch.Generator],
+             draws: Optional[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if probe_state.student is not classifier or probe_state.optimizer is not optimizer:
+            raise ValueError("the probe step was built for another classifier or optimizer")
+        pts, labels = pts.to(dev), labels.to(dev)
+        training = feat_model.training
+        feat_model.eval()
+        try:
+            with torch.no_grad():
+                feats = feat_model.encode_features(pts)
+        finally:
+            feat_model.train(training)
+        masks = (draws or probe_draws(generator, pts.shape[0]))["dropout"]
+        classifier.train()
+        logits = classifier(feats, [m.to(dev) for m in masks])
+        loss, acc = losses.classification_loss(logits, labels)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        probe_state.step += 1
+        return probe_state, {"loss_cls": loss.detach(), "acc_cls": acc}
+
+    return step

@@ -1,7 +1,8 @@
 """gm3d_tpu_torch stands on torch alone and starts without a GPU toolchain.
 
 Importing every module of the port in a fresh interpreter must pull in
-neither ``jax`` nor ``flax`` nor any module of ``gm3d_tpu``, and must work on
+neither ``jax`` nor ``flax`` nor any module of ``gm3d_tpu``, nor ``sklearn``
+(the card's machine has none: the SVM probe fits its own SVC), and must work on
 a machine with no GPU and no ``nvcc`` (the kernels are built at first
 launch, not at import). Entry points default to the GPU and must say so
 instead of continuing on the CPU.
@@ -27,7 +28,8 @@ names = ["gm3d_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "gm3d_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "gm3d_tpu",
+                                    "sklearn"))
 print("IMPORTED", len(names))
 print("NAMES", " ".join(names))
 print("FOREIGN", bad)
@@ -50,6 +52,10 @@ CKPT_MODULES = {
 }
 
 
+# the SVM probe and the linear SVC it fits
+PROBE_MODULES = {"gm3d_tpu_torch.eval.svm", "gm3d_tpu_torch.eval.linear_svc"}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -62,13 +68,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
     assert int(lines["IMPORTED"]) >= 48
-    assert PRETRAIN_CLI_MODULES | CKPT_MODULES <= set(lines["NAMES"].split())
+    assert PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES <= set(lines["NAMES"].split())
     assert lines["FOREIGN"] == "[]"
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
     pattern = re.compile(r"import jax|from jax|import flax|from flax|import orbax|"
-                         r"from orbax|import optax|from optax|gm3d_tpu(\.| import)")
+                         r"from orbax|import optax|from optax|import sklearn|from sklearn|"
+                         r"gm3d_tpu(\.| import)")
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 40
     hits = []

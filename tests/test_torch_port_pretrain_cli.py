@@ -6,16 +6,20 @@ step test's widths, stochastic depth 0) patched into both CLIs. Both start
 from the JAX CLI's own initialisation (``init`` with keys 1 and 2), carried
 across with ``load_flax_variables``, and the port is handed the draws of the
 JAX CLI's key sequence (``rng, key = split(rng)`` a step, then the step's own
-split). Then the two ``log.txt`` files must have the same keys (less the JAX
-CLI's ``val_svm_acc``, which comes with the SVM probe), equal ``epoch`` and
-``steps``, ``lr`` to ``rtol=1e-6`` and the six epoch means to ``rtol=2e-4``,
-the step test's tolerance.
+split). Then the two ``log.txt`` files must have the same keys, equal
+``epoch`` and ``steps``, ``lr`` to ``rtol=1e-6``, the six epoch means to
+``rtol=2e-4``, the step test's tolerance, and each epoch's SVM probe
+accuracy ``val_svm_acc`` (``--val_freq 1``) to within one of its 64 test
+clouds (the JAX probe fits sklearn's SVC, the port its own;
+``tests/test_torch_port_probe.py``), with ``ckpt/best`` and
+``best_metrics.json`` where that accuracy puts them.
 
 Each CLI is called in this process, through its module's ``main()`` after
 the patch (``cli_harness.run_cli`` reloads the module and would drop it).
 """
 
 import functools
+import importlib
 import json
 import math
 import sys
@@ -57,8 +61,9 @@ BATCH, SAMPLES, EPOCHS, NPOINTS = 4, 8, 2, 1024
 FLAGS = ["--config", "configs/pointmae/config.yaml", "--synthetic",
          "--batch_size", str(BATCH), "--synthetic_samples", str(SAMPLES),
          "--epochs", str(EPOCHS), "--steps_per_dispatch", "1", "--warmup_epochs", "1",
-         "--blr", "0.064", "--val_freq", "100", "--num_devices", "1"]
+         "--blr", "0.064", "--val_freq", "1", "--num_devices", "1"]
 METRICS = ("loss", "loss_recon", "loss_mse", "loss_chfr", "loss_learn", "grad_norm")
+SVM_TEST_CLOUDS = 64  # make_loaders: max(--synthetic_samples // 4, 64)
 
 
 @pytest.fixture(autouse=True)
@@ -67,6 +72,15 @@ def _fresh_loggers():
     unconfigured for whatever runs next in this process."""
     yield
     _reset_gm3d_loggers()
+
+
+@pytest.fixture(autouse=True)
+def _jax_cli_as_imported():
+    """``cli_harness.run_cli`` reloads ``gm3d_tpu.cli.pretrain`` while a test
+    has patched what it imports (``tests/test_async_ckpt.py`` patches
+    ``svm_probe`` and ``ema_decay_schedule``), which leaves those stubs bound in
+    the module after that test. Reload it from the real modules first."""
+    importlib.reload(jcli)
 
 
 def _example():
@@ -144,17 +158,41 @@ def test_the_two_clis_agree(loss, mode, monkeypatch, tmp_path):
     got = _run_port(monkeypatch, tmp_path / "port", flags, svars, tvars)
     assert len(got) == len(want) == EPOCHS
     for g, w in zip(got, want):
-        assert sorted(g) == sorted(k for k in w if k != "val_svm_acc")
+        assert sorted(g) == sorted(w)
         assert g["epoch"] == w["epoch"] and g["steps"] == w["steps"] == SAMPLES // BATCH
         np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6)
         for key in METRICS:
             assert math.isfinite(g[key]), key
             np.testing.assert_allclose(g[key], w[key], rtol=2e-4,
                                        err_msg=f"{loss} epoch {g['epoch']} {key}")
+    # --val_freq 1: a probe after each epoch, within one test cloud of the JAX CLI's
+    for g, w in zip(got, want):
+        assert abs(g["val_svm_acc"] - w["val_svm_acc"]) <= 1.0 / SVM_TEST_CLOUDS + 1e-12
+    _assert_best(tmp_path / "port" / "ckpt", got)
+    from gm3d_tpu.ckpt.checkpoint import latest_step as jlatest_step
+
+    accs = [w["val_svm_acc"] for w in want]
+    assert json.loads((tmp_path / "jax" / "ckpt" / "best_metrics.json").read_text()) == {
+        "best": max(accs)}
+    assert jlatest_step(str(tmp_path / "jax" / "ckpt" / "best")) == (
+        accs.index(max(accs)) + 1) * (SAMPLES // BATCH)
     # the warm-up's peak after epoch 0, the cosine's end after epoch 1
     np.testing.assert_allclose([g["lr"] for g in got], [1e-3, 0.0], rtol=1e-6, atol=0)
     assert (tmp_path / "port" / "pretrain.log").read_text().count("epoch 1: loss=") == 1
     assert any((tmp_path / "port" / "tfboard").iterdir())
+
+
+def _assert_best(ckpt, records):
+    """``best_metrics.json`` holds the best ``val_svm_acc``; ``ckpt/best`` one
+    step, the end of the first epoch that reached it, with that accuracy."""
+    from gm3d_tpu_torch.ckpt.checkpoint import all_steps, load_best_metrics
+
+    accs = [r["val_svm_acc"] for r in records]
+    step = (accs.index(max(accs)) + 1) * (SAMPLES // BATCH)
+    assert load_best_metrics(str(ckpt)) == {"best": max(accs)}
+    assert all_steps(str(ckpt / "best")) == [step]
+    assert json.loads((ckpt / "best" / str(step) / "metrics.json").read_text()) == {
+        "svm_acc": max(accs)}
 
 
 def _small_models(monkeypatch):
@@ -190,8 +228,8 @@ def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
 
 NOT_PORTED = [
     ["--model_family", "m2ae"], ["--model_family", "m2ae_gm3d"],
-    ["--learn_feature_loss", "clip"], ["--classification"], ["--sync_probe"],
-    ["--student_variant", "legacy"], ["--accum_iter", "2"], ["--no-shared_opt"], ["--bf16"],
+    ["--learn_feature_loss", "clip"], ["--student_variant", "legacy"], ["--accum_iter", "2"],
+    ["--no-shared_opt"], ["--bf16"],
     ["--quantize_ema"], ["--num_devices", "2"], ["--native_loader"],
 ]
 
@@ -242,7 +280,9 @@ def test_resume_after_a_crash_equals_the_jax_clis(monkeypatch, tmp_path):
 
     flags = ["--learn_feature_loss", "none", "--synthetic_samples", "16", "--save_steps", "1"]
     orig = _crash_at_third_check(monkeypatch, jcli)
-    monkeypatch.setattr(jcli, "svm_probe", lambda *a, **k: 0.0)  # item 1c, not compared
+    # the probe is stubbed on both sides alike: its accuracy is compared elsewhere
+    monkeypatch.setattr(jcli, "svm_probe", lambda *a, **k: 0.0)
+    monkeypatch.setattr(cli, "svm_probe", lambda *a, **k: 0.0)
     with pytest.raises(RuntimeError, match="injected crash"):
         _run_jax(monkeypatch, tmp_path / "jax", flags)
     monkeypatch.setattr(jcli, "check_finite_loss", orig)
@@ -263,10 +303,12 @@ def test_resume_after_a_crash_equals_the_jax_clis(monkeypatch, tmp_path):
     assert [r["steps"] for r in got] == [r["steps"] for r in want] == [2, 4]
     assert [r["epoch"] for r in got] == [r["epoch"] for r in want] == [0, 1]
     for g, w in zip(got, want):
+        assert g.get("val_svm_acc") == w.get("val_svm_acc")
         np.testing.assert_allclose(g["lr"], w["lr"], rtol=1e-6)
         for key in METRICS:
             np.testing.assert_allclose(g[key], w[key], rtol=2e-4,
                                        err_msg=f"resumed epoch {g['epoch']} {key}")
+    assert [r["val_svm_acc"] for r in got] == [0.0, 0.0]  # the stubs' accuracy
     assert "resumed from step 2" in (tmp_path / "port" / "pretrain.log").read_text()
 
 
@@ -367,9 +409,27 @@ def test_loaders_equal_the_jax_clis(tmp_path):
     assert mine[0].state() == theirs[0].state() == {"epoch": 1, "batch": 0}
 
 
+def _modelnet2_files(root):
+    """A tiny ModelNet of two categories: four training clouds, two test ones."""
+    cats = ["chair", "desk"]
+    root.mkdir()
+    (root / "modelnet2_shape_names.txt").write_text("\n".join(cats) + "\n")
+    ids = {"train": ["chair_0001", "desk_0001", "chair_0002", "desk_0002"],
+           "test": ["chair_0003", "desk_0003"]}
+    for split, shapes in ids.items():
+        (root / f"modelnet2_{split}.txt").write_text("\n".join(shapes) + "\n")
+        for i, shape in enumerate(shapes):
+            cat = shape.rsplit("_", 1)[0]
+            (root / cat).mkdir(exist_ok=True)
+            # fewer rows than the 8192 the reader samples: FPS repeats points then
+            rows = np.random.default_rng(i).standard_normal((120, 6)) + 3.0 * (cat == "desk")
+            np.savetxt(root / cat / f"{shape}.txt", rows, delimiter=",", fmt="%.6f")
+
+
 def test_the_cli_trains_on_shapenet_files(monkeypatch, tmp_path):
     """Without ``--synthetic`` the train set is the config's ShapeNet-55
-    (here three tiny files the test writes); no ModelNet files are needed."""
+    (here three tiny files the test writes) and the SVM probe's sets are its
+    ModelNet ones (a tiny two-class ModelNet the test writes too)."""
     import yaml
 
     pc = tmp_path / "pc"
@@ -383,6 +443,11 @@ def test_the_cli_trains_on_shapenet_files(monkeypatch, tmp_path):
     cfg["dataset"]["train"]["_base_"].update(DATA_PATH=str(tmp_path), PC_PATH=str(pc))
     cfg["npoints"] = 256
     cfg["dataset"]["train"]["others"]["npoints"] = 256
+    _modelnet2_files(tmp_path / "modelnet")
+    for split in ("extra_train_svm", "extra_test_svm"):
+        cfg["dataset"][split]["_base_"].update(DATA_PATH=str(tmp_path / "modelnet"),
+                                               NUM_CATEGORY=2)
+        cfg["dataset"][split]["others"]["npoints"] = 256
     (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
     _small_models(monkeypatch)
     records = cli.main(["--config", str(tmp_path / "cfg.yaml"), "--learn_feature_loss", "ema",
@@ -390,6 +455,8 @@ def test_the_cli_trains_on_shapenet_files(monkeypatch, tmp_path):
                         "--output_dir", str(tmp_path / "out")])
     assert len(records) == 1 and records[0]["steps"] == 2
     assert all(math.isfinite(records[0][k]) for k in METRICS)
+    # two test clouds: the accuracy is 0, 0.5 or 1
+    assert records[0]["val_svm_acc"] in (0.0, 0.5, 1.0)
 
 
 def test_step_draws_come_from_the_generator():
