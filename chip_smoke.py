@@ -59,6 +59,21 @@ Phases, each printing one JSON line when it ends:
               (9,843 x 384 training features, 2,468 test ones, 40 classes, from
               ``--seed``) on the card and on the CPU: equal predictions,
               decision values within ``SVC_DEC_TOL``, wall time, peak memory
+  step_options  the GM3D step's options at full width: four micro-steps of
+              ``accum_steps=2`` (parameters and EMA bit-equal after the first
+              micro-step of a window, moved after the second; launches
+              1/1/2/72/28 a micro-step; the fold of one micro-step's
+              gradients into the running mean timed alone beside its HBM
+              bound), two steps of the separated optimizers (the frozen
+              parameters never move, both halves do; launches 1/1/2/64/28),
+              two remat steps against two plain ones from one state and one
+              generator (metrics within ``TOL_REMAT``; ms and peak memory of
+              each), six bf16 steps through the kernels (finite, launches
+              1/1/2/72/28) and six through the unfused attention from the same
+              state and generator (the first step's metrics within
+              ``TOL_BF16``; clouds per second, peak memory; the attention
+              kernels' time inside a traced bf16 step), and the CLI with ``--accum_iter 2 --no-shared_opt
+              --bf16`` for one epoch (its record, launches, checkpoint)
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -75,6 +90,7 @@ features.
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import itertools
 import json
@@ -119,12 +135,15 @@ from gm3d_tpu_torch.ops.knn import (knn_indices, knn_indices_torch, knn_overflow
 from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
 from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
-from gm3d_tpu_torch.train.optim import GM3D_COORD_HEAD  # noqa: E402
+from gm3d_tpu_torch.train.optim import (GM3D_COORD_HEAD, MultiSteps,  # noqa: E402
+                                         build_gm3d_separated_optimizer,
+                                         build_gm3d_shared_optimizer, gm3d_separated_labels)
 from gm3d_tpu_torch.train.pretrain import (METRIC_KEYS, POINTMAE_METRIC_KEYS,  # noqa: E402
                                            make_gm3d_train_step)
 from gm3d_tpu_torch.train.schedules import (cosine_warmup_schedule, effective_lr,  # noqa: E402
                                             legacy_cosine_epoch_schedule)
-from gm3d_tpu_torch.utils.profiling import device_busy_share, device_idle_gaps  # noqa: E402
+from gm3d_tpu_torch.utils.profiling import (device_busy_share, device_idle_gaps,  # noqa: E402
+                                            start_trace, stop_trace)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
@@ -1364,8 +1383,271 @@ def phase_probe(env: dict, tmp: str, seed: int) -> dict:
     return {name: run["launches"] for name, run in runs.items()}
 
 
+# the step's options at full width (phase step_options): four micro-steps of two
+# an update, two steps of each other option, six bf16 steps each way
+ACCUM, ACCUM_MICRO_STEPS, OPTION_STEPS, BF16_STEPS = 2, 4, 2, 6
+# --no-shared_opt: the teacher encodes the cloud (12 blocks) inside the loss and
+# replays nothing, so 24 (EMA) + 28 (student) + 12 attention forwards a step
+SEPARATED_LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 2, "attention_fwd": 64,
+                               "attention_bwd": 28}
+# remat against the plain step, both through the kernels from one state and one
+# generator: the attention backward sums dW by fp32 atomicAdd (ROADMAP Queue 3),
+# so the two steps' weight gradients part in their last bits; metrics to
+# TOL_REMAT, and a parameter may move by up to two learning rates apart where
+# its gradient is rounding noise (Adam's first steps move by about lr * sign(g)),
+# in at most TOL_REMAT_SHARE of the entries
+TOL_REMAT, TOL_REMAT_SHARE = 2e-3, 1e-3
+# the bf16 step through the kernels against the unfused bf16 step, first step's
+# metrics: five of bf16's roundings (2^-8 each)
+TOL_BF16 = 2e-2
+OPTION_LR = 1e-3
+
+
+def _float_state(module: torch.nn.Module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()
+            if v.dtype.is_floating_point}
+
+
+def _moved(before: dict, module: torch.nn.Module) -> dict:
+    now = module.state_dict()
+    return {k: not torch.equal(now[k], v) for k, v in before.items()}
+
+
+def _steps(step, state, gen, n: int):
+    """``n`` steps of fresh clouds: state, metrics, wall ms a step, and the peak
+    device memory above what was allocated before them (activations and the
+    step's temporaries)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    history, wall = [], []
+    for _ in range(n):
+        pts = _train_clouds(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, pts, gen, pp.SCALARS)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(metrics[k]) for k in METRIC_KEYS})
+    check(all(np.isfinite(v) for m in history for v in m.values()), history)
+    return state, history, wall, torch.cuda.max_memory_allocated(DEV) - base
+
+
+def _fresh_optimizer(state, **kwargs):
+    state.optimizer = build_gm3d_shared_optimizer(state.student, OPTION_LR, **kwargs)
+    state.step = 0
+    return state
+
+
+def _attention_kernel_ms(trace_path: str) -> dict:
+    """Launches and summed device ms of the attention kernels in a trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for name, kernel in (("attention_fwd", "attn_fwd_kernel"), ("attention_bwd", "attn_bwd_kernel")):
+        durs = [float(e["dur"]) for e in events
+                if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        out[name] = {"launches": len(durs), "ms_total": sum(durs) / 1e3,
+                     "ms_mean": sum(durs) / 1e3 / max(len(durs), 1)}
+    return out
+
+
+def phase_step_options(env: dict, trained: dict | None, tmp: str) -> dict:
+    """The GM3D step's options at full width through the kernels: gradient
+    accumulation, the separated optimizers, remat, bf16, and the CLI with
+    ``--accum_iter 2 --no-shared_opt --bf16``."""
+    pp.reset_launches()  # this phase's paths: every launch count starts from 0 here
+    res = {"phase": "step_options", "batch": TRAIN_BATCH}
+
+    # ---- accumulation: two micro-steps an update
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    _fresh_optimizer(state, accum_steps=ACCUM)
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer, accum_steps=ACCUM)
+    params = _float_state(state.student)
+    ema = _float_state(state.ema)
+    stats = [k for k in params if k.endswith(("running_mean", "running_var"))]
+    weights = [k for k in params if k not in stats and not k.startswith(GM3D_COORD_HEAD)]
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    per_micro, wall, updated = [], [], []
+    for i in range(ACCUM_MICRO_STEPS):
+        before = pp.read_launches()
+        state, _, ms, _ = _steps(step, state, gen, 1)
+        after = pp.read_launches()
+        per_micro.append({k: after[k] - before[k] for k in after})
+        wall.append(ms[0])
+        moved, ema_moved = _moved(params, state.student), _moved(ema, state.ema)
+        if i % ACCUM == 0:
+            check(not any(moved[k] for k in weights), f"micro-step {i + 1} moved a parameter")
+            check(not any(ema_moved.values()), f"micro-step {i + 1} moved the EMA")
+            check(all(moved[k] for k in stats), "the BatchNorm statistics did not move")
+        else:
+            check(all(moved[k] for k in weights),
+                  f"micro-step {i + 1} left {[k for k in weights if not moved[k]][:3]}")
+            check(all(ema_moved[k] for k in weights), f"micro-step {i + 1}: EMA did not move")
+        updated.append(i % ACCUM == ACCUM - 1)
+        params, ema = _float_state(state.student), _float_state(state.ema)
+    check(all(m == LAUNCHES_PER_STEP for m in per_micro), f"launches a micro-step {per_micro}")
+    check(state.optimizer.gradient_step == ACCUM_MICRO_STEPS // ACCUM, "updates")
+    # the fold of one micro-step's gradients into the running mean, alone: a window
+    # that never closes, over a gradient for every parameter it owns
+    fold = MultiSteps(state.optimizer.inner, accum_steps=1 << 30)
+    for p in fold._params:
+        p.grad = torch.full_like(p, 1e-3)
+    owned_bytes = sum(p.numel() * p.element_size() for p in fold._params)
+    fold_ms = cuda_ms(fold.step, runs=10, warmup=2)
+    state.student.zero_grad(set_to_none=True)
+    del fold
+    res["accumulation"] = {
+        "accum_steps": ACCUM, "micro_steps": ACCUM_MICRO_STEPS, "updated": updated,
+        "launches_per_micro_step": per_micro, "ms_per_micro_step_wall": wall,
+        "fold_ms": fold_ms, "owned_parameters": owned_bytes // 4,
+        # read the gradients, read and write the running mean
+        "fold_bound_ms": bound(3 * owned_bytes, 0.0)[0]}
+
+    # ---- --no-shared_opt: the separated optimizers on the same student
+    state.optimizer = build_gm3d_separated_optimizer(state.student, OPTION_LR,
+                                                     loss_pred_learning_rate=OPTION_LR)
+    state.step = 0
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer, shared_opt=False)
+    labels = gm3d_separated_labels(state.student)
+    params = _float_state(state.student)
+    before = pp.read_launches()
+    state, history, wall, _ = _steps(step, state, gen, OPTION_STEPS)
+    after = pp.read_launches()
+    launches = {k: after[k] - before[k] for k in after}
+    want = {k: v * OPTION_STEPS for k, v in SEPARATED_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"separated launches {launches}, expected {want}")
+    moved = _moved(params, state.student)
+    frozen = [k for k, lab in labels.items() if lab == "frozen"]
+    check(sorted(frozen) == ["decoder_pos_embed.0.bias", "decoder_pos_embed.0.weight",
+                             "decoder_pos_embed.2.bias", "decoder_pos_embed.2.weight",
+                             "mask_token", "mask_token_loss_pred"], frozen)
+    check(not any(moved[k] for k in frozen), "a frozen parameter moved")
+    moved_sets = {lab: sum(moved[k] for k, lb in labels.items() if lb == lab)
+                  for lab in ("recon", "loss_pred")}
+    check(all(moved_sets.values()), f"moved parameters per set {moved_sets}")
+    res["separated"] = {"steps": OPTION_STEPS, "launches": launches, "metrics": history,
+                        "ms_per_step_wall": wall, "moved_per_set": moved_sets,
+                        "frozen_unmoved": frozen}
+
+    # ---- remat_student against the plain step, from one state and one generator
+    runs = {}
+    ref = (copy.deepcopy(state.student), copy.deepcopy(state.ema))
+    for name in ("plain", "remat"):
+        state.student.load_state_dict(ref[0].state_dict())
+        state.ema.load_state_dict(ref[1].state_dict())
+        _fresh_optimizer(state)
+        step = make_gm3d_train_step(state.student, teacher, state.optimizer,
+                                    remat_student=name == "remat")
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        before = pp.read_launches()
+        state, history, wall, peak = _steps(step, state, gen, OPTION_STEPS)
+        after = pp.read_launches()
+        runs[name] = {"metrics": history, "ms_per_step_wall": wall, "peak_extra_bytes": peak,
+                      "launches": {k: after[k] - before[k] for k in after},
+                      "params": _float_state(state.student)}
+    del ref
+    rel = [{k: abs(r[k] - p[k]) / max(abs(p[k]), 1e-12) for k in METRIC_KEYS}
+           for p, r in zip(runs["plain"]["metrics"], runs["remat"]["metrics"])]
+    check(all(v <= TOL_REMAT for d in rel for v in d.values()), f"remat metrics apart {rel}")
+    plain_p, remat_p = runs["plain"].pop("params"), runs["remat"].pop("params")
+    diffs = torch.cat([(plain_p[k] - remat_p[k]).abs().flatten() for k in plain_p])
+    max_diff, share = float(diffs.max()), float((diffs > 1e-5).float().mean())
+    check(max_diff <= 2 * OPTION_STEPS * OPTION_LR and share <= TOL_REMAT_SHARE,
+          f"remat parameters apart: max {max_diff}, share above 1e-5 {share}")
+    del plain_p, remat_p, diffs
+    res["remat"] = {**runs, "rel_diff_metrics": rel, "tol": TOL_REMAT,
+                    "max_abs_param_diff": max_diff, "share_params_apart_1e-5": share,
+                    "tol_share": TOL_REMAT_SHARE}
+    del state, teacher, step
+    torch.cuda.empty_cache()
+
+    # ---- bf16 compute through the kernels, then the same steps unfused, both from
+    # one state and one generator
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda", dtype=torch.bfloat16)
+    bf16 = {}
+    ref = (copy.deepcopy(state.student), copy.deepcopy(state.ema))
+    for name, fused in (("kernels", True), ("unfused_attention", False)):
+        state.student.load_state_dict(ref[0].state_dict())
+        state.ema.load_state_dict(ref[1].state_dict())
+        _fresh_optimizer(state)
+        step = make_gm3d_train_step(state.student, teacher, state.optimizer,
+                                    use_fused_attention=fused)
+        gen = torch.Generator(device=DEV).manual_seed(4)
+        before = pp.read_launches()
+        state, history, wall, peak = _steps(step, state, gen, BF16_STEPS)
+        after = pp.read_launches()
+        launches = {k: after[k] - before[k] for k in after}
+        if fused:
+            want = {k: v * BF16_STEPS for k, v in LAUNCHES_PER_STEP.items()}
+            check(launches == want, f"bf16 launches {launches}, expected {want}")
+        bf16[name] = {"launches": launches, "metrics_first_last": [history[0], history[-1]],
+                      "ms_per_step_wall": wall,
+                      "clouds_per_s": TRAIN_BATCH / statistics.median(wall[1:]) * 1e3,
+                      "peak_extra_bytes": peak}
+    del ref
+    # the first step, where both routes start alike: the unfused modules round
+    # qkv, the probabilities and the heads' outputs to bf16 where the kernels
+    # sum in fp32, and the masks follow the EMA's bf16 predictions
+    first = [bf16[name]["metrics_first_last"][0] for name in ("kernels", "unfused_attention")]
+    rel = {k: abs(first[0][k] - first[1][k]) / max(abs(first[1][k]), 1e-12)
+           for k in METRIC_KEYS}
+    print(f"step_options: bf16 first step, kernels {first[0]}, unfused {first[1]}, "
+          f"relative {rel} (tol {TOL_BF16})", flush=True)
+    check(all(v <= TOL_BF16 for v in rel.values()), f"bf16 kernels against unfused {rel}")
+    bf16["first_step_rel_diff"], bf16["tol"] = rel, TOL_BF16
+    # the attention kernels' own time inside one more bf16 step, from a trace
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer)
+    prof_dir = os.path.join(tmp, "bf16_trace")
+    prof = start_trace(prof_dir)
+    state, _ = step(state, _train_clouds(gen), gen, pp.SCALARS)
+    traced = _attention_kernel_ms(stop_trace(prof, prof_dir))
+    check([traced[k]["launches"] for k in ("attention_fwd", "attention_bwd")]
+          == [LAUNCHES_PER_STEP["attention_fwd"], LAUNCHES_PER_STEP["attention_bwd"]],
+          f"the trace of a bf16 step holds {traced}")
+    bf16["kernels"]["attention_in_one_traced_step"] = traced
+    check(all(p.dtype == torch.float32 for p in state.student.parameters()), "bf16 parameters")
+    if trained is not None:
+        bf16["fp32_train_step_clouds_per_s"] = trained["clouds_per_s"]
+    res["bf16"] = bf16
+    del state, teacher, step
+    torch.cuda.empty_cache()
+
+    # ---- the CLI with the three options together
+    out = os.path.join(tmp, "options_cli")
+    _fresh_cli_logger()
+    before = pp.read_launches()
+    records = pretrain_cli.main(["--config", GM3D_CONFIG, "--accum_iter", str(ACCUM),
+                                 "--no-shared_opt", "--bf16", *_cli_flags(out, epochs=1)])
+    after = pp.read_launches()
+    launches = {k: after[k] - before[k] for k in after}
+    log = _read_log(out)
+    check(log == records and len(log) == 1, log)
+    check(set(log[0]) == CLI_RECORD_KEYS and all(np.isfinite(log[0][k]) for k in log[0]), log)
+    check(log[0]["steps"] == CLI_STEPS_PER_EPOCH, log)
+    # the warm-up schedule over UPDATES, at the doubled effective learning rate
+    sched = cosine_warmup_schedule(effective_lr(1e-3, TRAIN_BATCH, ACCUM), 0.0, 40, 1,
+                                   CLI_STEPS_PER_EPOCH // ACCUM)
+    want_lr = sched(CLI_STEPS_PER_EPOCH // ACCUM)
+    check(abs(log[0]["lr"] - want_lr) <= 1e-12 * want_lr, (log[0]["lr"], want_lr))
+    want = with_probes(SEPARATED_LAUNCHES_PER_STEP, CLI_STEPS_PER_EPOCH, 1)
+    check(launches == want, f"CLI launches {launches}, expected {want}")
+    ckpt = os.path.join(out, "ckpt")
+    raw = restore_raw(ckpt)
+    check(latest_step(ckpt) == CLI_STEPS_PER_EPOCH, latest_step(ckpt))
+    check((raw["optimizer"]["mini_step"], raw["optimizer"]["gradient_step"])
+          == (0, CLI_STEPS_PER_EPOCH // ACCUM), "the checkpoint's accumulation counts")
+    check(set(raw["optimizer"]["inner"]) == {"recon", "loss_pred"}, "separated halves")
+    res["cli"] = {"flags": ["--accum_iter", str(ACCUM), "--no-shared_opt", "--bf16"],
+                  "records": log, "launches": launches, "checkpoint_step": latest_step(ckpt)}
+    res["launches"] = pp.read_launches()
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": res["launches"]}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume", "probe")
+          "resume", "probe", "step_options")
 
 
 def main() -> None:
@@ -1399,6 +1681,9 @@ def main() -> None:
             phase_resume(env, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         probed = phase_probe(env, tmp, cli_args.seed) if "probe" in phases else None
+    with tempfile.TemporaryDirectory() as tmp:
+        options = (phase_step_options(env, trained, tmp) if "step_options" in phases
+                   else None)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -1413,6 +1698,8 @@ def main() -> None:
         kern["launches_teacher"] = taught["launches"][kern["name"]]
         # with the SVM probe in the background, the CLI's default
         kern["launches_probe_background"] = probed["background"][kern["name"]]
+        # accumulation, the separated optimizers, remat, bf16 and their CLI run
+        kern["launches_step_options"] = options["launches"][kern["name"]]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

@@ -7,7 +7,8 @@ orbax. A checkpoint of ``step`` is the directory ``<ckpt_dir>/<step>/``:
                     ``state_dict`` under the reference's names (BN buffers and
                     ``num_batches_tracked`` included), the EMA copy's (or
                     ``None``), the optimizer's ``state_dict`` (or ``None``: a
-                    weights-only checkpoint) and the step
+                    weights-only checkpoint; under gradient accumulation it
+                    holds the window's running mean and count) and the step
   ``metrics.json``  the ``metrics`` of the save, where given
 
 A step is written under a temporary name and moved into place with
@@ -147,6 +148,22 @@ def restore_raw(ckpt_dir: str, step: Optional[int] = None,
                       map_location=map_location, weights_only=True)
 
 
+def _steps_to_host(optimizer_state: Mapping[str, Any]) -> None:
+    """A non-capturable AdamW keeps each parameter's step on the host (one on
+    the card would cost a synchronisation a parameter and step);
+    ``load_state_dict`` moves it back to the card where the optimizer wants
+    it. The state of a torch optimizer, or of a wrapper that nests them
+    (``train/optim.py``: ``MultiSteps``, ``SeparatedAdamW``)."""
+    if "param_groups" in optimizer_state:
+        for slot in optimizer_state["state"].values():
+            if "step" in slot:
+                slot["step"] = slot["step"].cpu()
+        return
+    for value in optimizer_state.values():
+        if isinstance(value, Mapping):
+            _steps_to_host(value)
+
+
 def restore_checkpoint(ckpt_dir: str, state: TrainState,
                        step: Optional[int] = None) -> Optional[int]:
     """Load step ``step`` (default: the latest) into the live modules and
@@ -166,12 +183,7 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     if state.optimizer is not None:
         if raw["optimizer"] is None:
             raise KeyError(f"{ckpt_dir} step {raw['step']} holds no optimizer state")
-        # a non-capturable AdamW keeps each parameter's step on the host (one
-        # on the card would cost a synchronisation a parameter and step);
-        # load_state_dict moves it back to the card where the optimizer wants it
-        for slot in raw["optimizer"]["state"].values():
-            if "step" in slot:
-                slot["step"] = slot["step"].cpu()
+        _steps_to_host(raw["optimizer"])
         state.optimizer.load_state_dict(raw["optimizer"])
     state.step = int(raw["step"])
     return state.step

@@ -1,9 +1,11 @@
 """GM3D and Point-MAE pretraining from the command line.
 
 Port of ``gm3d_tpu/cli/pretrain.py`` for ``--model_family gm3d`` (shared
-optimizer, ``--learn_feature_loss`` ``dino``, ``ema`` or ``none``) and
+optimizer or ``--no-shared_opt``, ``--learn_feature_loss`` ``dino``, ``ema``
+or ``none``, ``--student_variant svm`` or ``legacy``, fp32 or ``--bf16``) and
 ``--model_family pointmae`` (the teacher's pretrain, the legacy runner's
-recipe), on synthetic clouds or on-disk ShapeNet-55. Same flags, same log
+recipe), with ``--accum_iter`` micro-batches an update, on synthetic clouds
+or on-disk ShapeNet-55. Same flags, same log
 files (``pretrain.log``, the JSON-lines ``log.txt``, ``tfboard/``) and the
 same keys in them; the same checkpoints in ``<output_dir>/ckpt``
 (``ckpt/checkpoint.py``): a rolling save each epoch, ``--save_steps`` within
@@ -65,6 +67,7 @@ from gm3d_tpu_torch.cli.common import (
 )
 from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
 from gm3d_tpu_torch.data.prefetch import device_prefetch
+from gm3d_tpu_torch.eval import linear_svc
 from gm3d_tpu_torch.eval.svm import svm_probe
 from gm3d_tpu_torch.masking import keep_ratio_schedule
 from gm3d_tpu_torch.models import GM3DStudent
@@ -72,8 +75,10 @@ from gm3d_tpu_torch.models.point_transformer import Classifier
 from gm3d_tpu_torch.train.optim import (
     GM3D_COORD_HEAD,
     build_adamw,
+    build_gm3d_separated_optimizer,
     build_gm3d_shared_optimizer,
     build_legacy_adamw,
+    scheduled_param_groups,
 )
 from gm3d_tpu_torch.train.pretrain import (
     METRIC_KEYS,
@@ -160,10 +165,6 @@ NOT_PORTED = (
     (lambda a: a.model_family in ("m2ae", "m2ae_gm3d"), "--model_family m2ae / m2ae_gm3d",
      "3"),
     (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
-    (lambda a: a.student_variant == "legacy", "--student_variant legacy", "1d"),
-    (lambda a: a.accum_iter > 1, "--accum_iter above 1", "1d"),
-    (lambda a: not a.shared_opt, "--no-shared_opt", "1d"),
-    (lambda a: a.bf16, "--bf16", "1d"),
     (lambda a: a.quantize_ema, "--quantize_ema", "9"),
 )
 
@@ -175,6 +176,25 @@ def refuse_not_ported(args) -> None:
                 f"{what} is not ported to gm3d_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
 
 
+def resolve_student_variant(args) -> bool:
+    """``--student_variant legacy``: the older student (one positional
+    embedding for encoder and decoders, one mask token for both decoders),
+    the multi-GPU main's Chamfer-only engine and its uncapped keep-ratio ramp.
+    Defined for ``--model_family gm3d`` only; another family exits with the
+    JAX CLI's message. Sets the flags the variant forces on ``args``
+    (``--learn_feature_loss none``, ``--shared_learnable_tokens``), so that
+    everything after reads one resolved set of flags. Returns whether the
+    variant is the legacy one."""
+    legacy = args.student_variant == "legacy"
+    if legacy and args.model_family != "gm3d":
+        raise SystemExit(f"--student_variant legacy is only defined for --model_family "
+                         f"gm3d (got {args.model_family!r})")
+    if legacy:
+        args.learn_feature_loss = "none"
+        args.shared_learnable_tokens = True
+    return legacy
+
+
 def student_mode(args) -> str:
     """``feature`` under dino, ``usual`` under none, otherwise ``--mode``."""
     if args.learn_feature_loss == "none":
@@ -184,9 +204,11 @@ def student_mode(args) -> str:
 
 def build_student(args, mode: str, dtype: torch.dtype) -> GM3DStudent:
     """The student from the class defaults (full width, drop path 0.1), as
-    the JAX CLI builds it; the config's ``model`` section is the teacher's.
+    the JAX CLI builds it, the legacy variant's with the encoder's positional
+    embedding shared; the config's ``model`` section is the teacher's.
     Weights are drawn from a generator seeded 1 (the JAX CLI's init key)."""
-    student = GM3DStudent(mode=mode, dtype=dtype)
+    student = GM3DStudent(mode=mode, shared_pos_embed=args.student_variant == "legacy",
+                          dtype=dtype)
     student.reset_parameters(torch.Generator().manual_seed(1))
     return student
 
@@ -257,20 +279,24 @@ def step_draws(generator: torch.Generator, batch: int, num_group: int) -> Dict[s
 
 
 def epoch_scalars(args, epoch: int, epochs: int) -> Dict[str, float]:
-    """The step's epoch-dependent knobs (``gm3d_tpu/cli/pretrain.py:532-552``)."""
-    capped_ramp = args.after_200_epoch or args.learn_feature_loss == "none"
+    """The step's epoch-dependent knobs (``gm3d_tpu/cli/pretrain.py:532-552``):
+    the usual-mode student ramps its keep ratio with a cap, the legacy variant
+    without one."""
+    legacy = args.student_variant == "legacy"
+    capped_ramp = args.after_200_epoch or (args.learn_feature_loss == "none" and not legacy)
     if args.learn_feature_loss == "none":
         # usual-mode engine: the fixed mix 13.889 * MSE + 1 * CD from epoch 0
         w_mse, w_cd = 13.889, 1.0
     else:
         w_mse, w_cd = loss_weights(epoch, args.after_epoch, args.loss_multiply_by)
-    return {"keep_ratio": keep_ratio_schedule(epoch, epochs, capped_ramp),
+    return {"keep_ratio": keep_ratio_schedule(epoch, epochs, capped_ramp, legacy=legacy),
             "ema_decay": ema_decay_schedule(epoch), "w_mse": w_mse, "w_cd": w_cd}
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Train; returns the epoch records written to ``log.txt``."""
     args = parse_args(argv)
+    legacy = resolve_student_variant(args)
     refuse_not_ported(args)
     dev = setup_mesh(args)
     # fp32 products in fp32, as chip_smoke.py checks them
@@ -295,6 +321,11 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     wd = cfg["optimizer"]["kwargs"]["weight_decay"]
 
     if args.model_family == "gm3d":
+        if legacy:
+            # the multi-GPU main's defaults: the Chamfer-only engine, one
+            # shared mask token for both decoders
+            logger.info("--student_variant legacy forces --learn_feature_loss none and "
+                        "--shared_learnable_tokens")
         mode = student_mode(args)
         student = build_student(args, mode, dtype).to(dev)
         teacher = None
@@ -307,13 +338,26 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             else:
                 logger.warning("no teacher weights given: teacher is randomly initialised")
             teacher = teacher.to(dev)
-        # the coordinate head gets no gradient in feature mode: frozen, not decayed
-        frozen = (GM3D_COORD_HEAD,) if mode == "feature" else ()
-        optimizer = build_gm3d_shared_optimizer(student, sched(0), wd, frozen_modules=frozen)
+        if not args.shared_opt:
+            # the reference never schedules the loss-prediction optimizer: constant lr
+            optimizer = build_gm3d_separated_optimizer(student, sched(0), wd,
+                                                       accum_steps=args.accum_iter,
+                                                       loss_pred_learning_rate=lr)
+            logger.info("separated recon / loss-pred optimizers (--no-shared_opt)")
+        else:
+            # the coordinate head gets no gradient in feature mode, and the legacy
+            # student has no mask_token_loss_pred: frozen, not decayed
+            frozen = ((GM3D_COORD_HEAD,) if mode == "feature" else
+                      ("mask_token_loss_pred",) if legacy else ())
+            optimizer = build_gm3d_shared_optimizer(student, sched(0), wd,
+                                                    accum_steps=args.accum_iter,
+                                                    frozen_modules=frozen)
         state = create_train_state(student, optimizer, with_ema=True)
         gm3d_step = make_gm3d_train_step(student, teacher, optimizer, args.mask_ratio,
                                          args.shared_learnable_tokens, args.relative,
-                                         distill_mode=args.learn_feature_loss, device=dev)
+                                         distill_mode=args.learn_feature_loss,
+                                         shared_opt=args.shared_opt,
+                                         accum_steps=args.accum_iter, device=dev)
         keys = METRIC_KEYS
         feat_model = student
 
@@ -397,6 +441,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         stats["val_svm_acc"] = acc
         logger.info(f"svm probe of epoch {stats['epoch']}: acc {acc:.4f}; " + ", ".join(
             f"{k} {v:.6g}" for k, v in probe_stats.items()))
+        if "gap" in probe_stats:
+            # sklearn's SVC warns at its cap and goes on: so does the run
+            stats["val_svm_gap"] = probe_stats["gap"]
+            logger.warning(f"svm probe of epoch {stats['epoch']}: the linear SVC stopped at "
+                           f"its cap of {linear_svc.MAX_ITER} iterations with a KKT gap of "
+                           f"{probe_stats['gap']:.3g} (tolerance {linear_svc.TOL:g})")
         if acc > best_acc:
             best_acc = acc
             writer.submit(statelike, lambda s, step=step, a=acc: (
@@ -511,9 +561,10 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                 return prefetcher.state() or {"epoch": epoch, "batch": 0}
 
             for pts in prefetcher:
-                # optax evaluates the schedule at the optimizer's count BEFORE the update
-                for group in optimizer.param_groups:
-                    group["lr"] = sched(state.step)
+                # optax evaluates the schedule at the optimizer's count of UPDATES
+                # before the update (under accumulation, once a window)
+                for group in scheduled_param_groups(optimizer):
+                    group["lr"] = sched(state.step // args.accum_iter)
                 state, metrics = run_step(state, pts, generator, scalars)
                 dm.push(metrics)
                 if args.save_steps and state.step - last_saved_step >= args.save_steps:
@@ -554,7 +605,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             epoch_time = time.time() - t0
             n_steps = meter.meters["loss"].count if "loss" in meter.meters else 0
             stats.update(epoch=epoch, time=round(epoch_time, 2),
-                         lr=float(sched(state.step)), steps=n_steps,
+                         lr=float(sched(state.step // args.accum_iter)), steps=n_steps,
                          clouds_per_sec=round(n_steps * batch / max(epoch_time, 1e-9), 1))
             # the previous epoch's probe ends first: its record precedes this
             # epoch's, and the best accuracy is current before this epoch's probe

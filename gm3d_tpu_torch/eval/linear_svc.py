@@ -24,7 +24,9 @@ converged and updates those two multipliers and the pair's gradient. A pair
 stops when its KKT gap ``max_{I_up} -y G + max_{I_low} y G`` falls below
 ``TOL``, a hundredth of libsvm's default ``1e-3``, so the solution sits
 nearer the optimum than sklearn's. A pair that has not converged within
-``max_iter`` iterations raises; no half-solved model is returned.
+``max_iter`` iterations stops there, as libsvm stops at its cap: the fit
+warns (``ConvergenceWarning``, as sklearn does) and returns the model with
+each pair's ``gap`` and ``iterations``.
 
 Memory: one Gram matrix of all training features (N^2 float64; 0.78 GB at
 ModelNet40's 9,843 clouds); each iteration gathers the two rows it needs of
@@ -34,7 +36,9 @@ the batch shrinks to the pairs still running as the others converge.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -45,6 +49,11 @@ MAX_ITER = 200_000
 CHECK_EVERY = 32
 # libsvm's TAU: the curvature used where K_ii + K_jj - 2 K_ij is not positive
 TAU = 1e-12
+
+
+class ConvergenceWarning(UserWarning):
+    """A fit stopped at its iteration cap before every pair converged
+    (sklearn's ``ConvergenceWarning`` for the same event)."""
 
 
 @dataclass
@@ -117,9 +126,12 @@ def _smo(gram: torch.Tensor, idx: torch.Tensor, y: torch.Tensor, valid: torch.Te
                 break
             if it == max_iter:
                 left = act[keep].tolist()
-                raise RuntimeError(
+                warnings.warn(
                     f"linear SVC: {len(left)} of {num_pairs} pairs did not reach a KKT gap "
-                    f"below {TOL:g} within {max_iter} SMO iterations (pairs {left[:5]})")
+                    f"below {TOL:g} within {max_iter} SMO iterations (pairs {left[:5]}, "
+                    f"largest gap {float(gap.max()):.3g}); the model is returned as it stands",
+                    ConvergenceWarning, stacklevel=3)
+                break
             if len(keep) < len(act):
                 act = act[keep]
                 width = int(sizes[act].max())
@@ -208,10 +220,14 @@ def _rho(alpha: torch.Tensor, grad: torch.Tensor, y: torch.Tensor, valid: torch.
 
 
 def fit_linear_svc(features: torch.Tensor, labels: torch.Tensor, c: float = 0.01,
-                   max_iter: int = MAX_ITER) -> LinearSVCModel:
+                   max_iter: Optional[int] = None) -> LinearSVCModel:
     """Fit the one-vs-one linear C-SVC on ``features`` (N, D) and integer
-    ``labels`` (N,), in float64 on ``features.device``. Raises if a pair has
-    not reached a KKT gap below ``TOL`` within ``max_iter`` iterations."""
+    ``labels`` (N,), in float64 on ``features.device``. A pair that has not
+    reached a KKT gap below ``TOL`` within ``max_iter`` iterations (default
+    ``MAX_ITER``) stops there with a ``ConvergenceWarning``; its ``gap`` in
+    the model says how far it was."""
+    if max_iter is None:
+        max_iter = MAX_ITER
     if features.ndim != 2 or labels.shape != features.shape[:1]:
         raise ValueError(f"expected (N, D) features and (N,) labels, got "
                          f"{tuple(features.shape)} and {tuple(labels.shape)}")

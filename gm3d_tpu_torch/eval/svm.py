@@ -20,7 +20,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from gm3d_tpu_torch.eval.linear_svc import fit_linear_svc, predict
+from gm3d_tpu_torch.eval.linear_svc import TOL, fit_linear_svc, predict
 from gm3d_tpu_torch.ops.fps import fps
 
 SVM_C = 0.01
@@ -72,11 +72,16 @@ def evaluate_svm(train_features: torch.Tensor, train_labels: torch.Tensor,
                  stats: Optional[dict] = None) -> float:
     """``main_pretrain.py:710-717`` (features already pooled): the accuracy
     of a linear ``C = 0.01`` SVC, as a fraction. ``stats``, where given,
-    gets the solver's ``iterations`` (the most any pair of classes took)."""
+    gets the solver's ``iterations`` (the most any pair of classes took) and,
+    where a pair stopped above the solver's tolerance (its iteration cap),
+    ``gap``, the largest pair's KKT gap."""
     model = fit_linear_svc(train_features, train_labels, c=SVM_C)
     pred = predict(model, test_features)
     if stats is not None:
         stats["iterations"] = int(model.iterations.max())
+        gap = float(model.gap.max())
+        if not gap < TOL:
+            stats["gap"] = gap
     return float((pred == test_labels.to(pred.device)).sum()) / pred.shape[0]
 
 

@@ -3,8 +3,11 @@
 Port of ``gm3d_tpu/train/optim.py::build_adamw`` and
 ``::build_gm3d_shared_optimizer`` over ``torch.optim.AdamW`` with two
 parameter groups (decay on parameters with ``ndim > 1``, none on biases and
-norms), and ``::build_legacy_adamw``, the teacher pretrain's. The separated
-and layer-decay constructors of that file are not ported yet.
+norms), ``::build_legacy_adamw``, the teacher pretrain's, and
+``::build_gm3d_separated_optimizer`` (``--no-shared_opt``, ``SeparatedAdamW``).
+Gradient accumulation (``accum_steps > 1``) wraps any of them in
+``MultiSteps``, the counterpart of ``optax.MultiSteps``. The layer-decay
+constructors of that file are not ported yet.
 
 Two places where optax and torch differ, and what is done about them:
 
@@ -21,7 +24,7 @@ Two places where optax and torch differ, and what is done about them:
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -77,49 +80,225 @@ def _decay_groups(named_params: Sequence[Tuple[str, nn.Parameter]], weight_decay
             {"params": no_decay, "weight_decay": 0.0}]
 
 
+class MultiSteps:
+    """Gradient accumulation over ``accum_steps`` micro-batches, the
+    counterpart of ``optax.MultiSteps`` around ``inner`` (a torch optimizer,
+    or ``SeparatedAdamW``).
+
+    It keeps a running mean of the gradients of ``inner``'s parameters (a
+    missing gradient counts as zero, as optax's tree of zeros does) by
+    optax's own rule, ``acc += (g - acc) / (n + 1)``, and the count of
+    micro-steps. A micro-step that does not end the window leaves the
+    parameters and ``inner``'s state alone; the ``accum_steps``-th hands
+    ``scale`` times the mean to ``inner`` as the gradient (its clip applies to
+    that) and steps it. ``scale`` is 1 for the mean (``build_adamw``, the GM3D
+    optimizers) and ``accum_steps`` for the legacy runners' sum.
+
+    The learning rate is ``inner``'s: the caller sets it from the count of
+    updates, ``step // accum_steps``, which is where optax reads a schedule
+    under ``MultiSteps``. ``state_dict`` holds the accumulation and the count,
+    so that a checkpoint saved inside a window resumes exactly."""
+
+    def __init__(self, inner, accum_steps: int, scale: float = 1.0):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+        self.inner, self.accum_steps, self.scale = inner, int(accum_steps), float(scale)
+        self._params = [p for group in inner.param_groups for p in group["params"]]
+        self.acc: List[torch.Tensor] = [torch.zeros_like(p) for p in self._params]
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def scheduled_param_groups(self):
+        return scheduled_param_groups(self.inner)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> bool:
+        """Fold the current gradients into the mean; on the last micro-step of
+        the window, update through ``inner``. Returns whether it updated."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self._params]
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, diff)
+        update = self.mini_step == self.accum_steps - 1
+        if update:
+            if self.scale != 1.0:
+                torch._foreach_mul_(self.acc, self.scale)
+            for p, a in zip(self._params, self.acc):
+                p.grad = a
+            self.inner.step()
+            # the window's gradient is spent: no later backward may add into it
+            for p in self._params:
+                p.grad = None
+            torch._foreach_zero_(self.acc)
+            self.gradient_step += 1
+        self.mini_step = (self.mini_step + 1) % self.accum_steps
+        return update
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "acc": list(self.acc),
+                "mini_step": self.mini_step, "gradient_step": self.gradient_step}
+
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["acc"]) != len(self.acc):
+            raise ValueError(f"the accumulation holds {len(state['acc'])} tensors, "
+                             f"this optimizer {len(self.acc)}")
+        self.inner.load_state_dict(state["inner"])
+        with torch.no_grad():
+            for a, saved in zip(self.acc, state["acc"]):
+                a.copy_(saved)
+        self.mini_step, self.gradient_step = int(state["mini_step"]), int(state["gradient_step"])
+
+
+def accumulate(optimizer, accum_steps: int, scale: float = 1.0):
+    """``optimizer`` itself for one micro-batch an update, else wrapped in
+    ``MultiSteps``."""
+    return optimizer if accum_steps <= 1 else MultiSteps(optimizer, accum_steps, scale)
+
+
+def scheduled_param_groups(optimizer) -> list:
+    """The parameter groups whose ``lr`` the learning-rate schedule sets: the
+    optimizer's ``scheduled_param_groups`` where it has them
+    (``SeparatedAdamW`` keeps its loss-prediction half at a constant rate),
+    else all its groups."""
+    return getattr(optimizer, "scheduled_param_groups", optimizer.param_groups)
+
+
 def build_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
                 betas=(0.9, 0.95), grad_clip: Optional[float] = None,
-                accum_steps: int = 1) -> ClippedAdamW:
+                accum_steps: int = 1):
     """AdamW(betas=(0.9, 0.95), eps 1e-8, wd on >=2-d params only), with an
-    optional global-norm clip. ``named_params``: ``module.named_parameters()``
-    or any iterable of (name, parameter). Set a scheduled learning rate on
-    ``optimizer.param_groups[i]["lr"]`` before each step."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 (gradient accumulation) is not ported yet")
+    optional global-norm clip, over the mean of ``accum_steps`` micro-batches.
+    ``named_params``: ``module.named_parameters()`` or any iterable of (name,
+    parameter). Set a scheduled learning rate on ``optimizer.param_groups[i]["lr"]``
+    before each step."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
-    return ClippedAdamW(_decay_groups(named, weight_decay), grad_clip=grad_clip,
-                        lr=learning_rate, betas=tuple(betas), eps=1e-8)
+    return accumulate(ClippedAdamW(_decay_groups(named, weight_decay), grad_clip=grad_clip,
+                                   lr=learning_rate, betas=tuple(betas), eps=1e-8),
+                      accum_steps)
 
 
 def build_legacy_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
-                       accum_steps: int = 1) -> torch.optim.AdamW:
+                       accum_steps: int = 1, grad_clip: Optional[float] = None):
     """The legacy runners' AdamW, which made the published teacher: torch's
-    default betas (0.9, 0.999), no gradient clip, and no weight decay on a
-    1-d parameter, a ``.bias`` or ANY parameter whose name contains
-    ``token`` (``mask_token``, ``cls_token``). The names are torch's; the
-    JAX mask reads the same words in the flax paths."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 (gradient accumulation, summed over the micro-batches in the "
-            "legacy runners) is not ported yet (ROADMAP.md Queue 1 item 1c)")
+    default betas (0.9, 0.999), and no weight decay on a 1-d parameter, a
+    ``.bias`` or ANY parameter whose name contains ``token`` (``mask_token``,
+    ``cls_token``). The names are torch's; the JAX mask reads the same words
+    in the flax paths. No gradient clip unless ``grad_clip`` (the legacy
+    finetune runner's). Accumulation SUMS the micro-batches' gradients (plain
+    ``loss.backward()`` a micro-batch), and the clip is taken on that sum."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
     decay = [p for n, p in named if p.ndim > 1 and "token" not in n]
     no_decay = [p for n, p in named if not (p.ndim > 1 and "token" not in n)]
-    return torch.optim.AdamW([{"params": decay, "weight_decay": weight_decay},
-                              {"params": no_decay, "weight_decay": 0.0}],
-                             lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    groups = [{"params": decay, "weight_decay": weight_decay},
+              {"params": no_decay, "weight_decay": 0.0}]
+    kwargs = dict(lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    inner = (torch.optim.AdamW(groups, **kwargs) if grad_clip is None
+             else ClippedAdamW(groups, grad_clip=grad_clip, **kwargs))
+    return accumulate(inner, accum_steps, scale=float(accum_steps))
 
 
 def build_gm3d_shared_optimizer(student: nn.Module, learning_rate: float,
                                 weight_decay: float = 0.05, betas=(0.9, 0.95),
                                 grad_clip: Optional[float] = 5.0, accum_steps: int = 1,
-                                frozen_modules: tuple = (GM3D_COORD_HEAD,)) -> ClippedAdamW:
+                                frozen_modules: tuple = (GM3D_COORD_HEAD,)):
     """Shared-optimizer GM3D pretrain: AdamW + global-norm clip 5.
 
-    ``frozen_modules``: top-level sub-modules left out of the optimizer (see
-    the module docstring); pass ``()`` for usual mode, where the coordinate
-    head IS the reconstruction path."""
+    ``frozen_modules``: top-level sub-modules (or top-level parameters, such
+    as the legacy variant's ``mask_token_loss_pred``) left out of the
+    optimizer (see the module docstring); pass ``()`` for usual mode, where
+    the coordinate head IS the reconstruction path."""
     named = [(n, p) for n, p in student.named_parameters()
              if n.split(".")[0] not in frozen_modules]
     return build_adamw(named, learning_rate, weight_decay, betas, grad_clip, accum_steps)
+
+
+# --no-shared_opt: the recon optimizer owns the encoder, the reconstruction
+# decoder and the coordinate head; the loss-prediction optimizer the
+# loss-prediction decoder and the feature head (the JAX names head_fc1, head_bn,
+# head_fc2 are ``increase_dim_2`` here). ``decoder_pos_embed`` and both mask
+# tokens sit in neither, as in the reference: no update, no decay.
+GM3D_RECON_MODULES = ("MAE_encoder", "MAE_decoder", GM3D_COORD_HEAD)
+GM3D_LOSS_PRED_MODULES = ("MAE_decoder_loss_pred", "increase_dim_2")
+
+
+def gm3d_separated_labels(student: nn.Module) -> dict:
+    """``"recon"``, ``"loss_pred"`` or ``"frozen"`` for each parameter name,
+    by its top-level module (``gm3d_tpu/train/optim.py::gm3d_separated_labels``)."""
+    def label(name: str) -> str:
+        top = name.split(".")[0]
+        if top in GM3D_RECON_MODULES:
+            return "recon"
+        if top in GM3D_LOSS_PRED_MODULES:
+            return "loss_pred"
+        return "frozen"
+
+    return {n: label(n) for n, _ in student.named_parameters()}
+
+
+class SeparatedAdamW:
+    """Two clipped AdamW over disjoint parameter sets, stepped together
+    (``--no-shared_opt``; optax's ``multi_transform`` of two ``build_adamw``).
+    Each clips its own set's gradients to its global norm. A parameter of
+    either set with no gradient is stepped on a zero one, as optax steps it
+    (decay included); the frozen parameters belong to neither."""
+
+    def __init__(self, recon: ClippedAdamW, loss_pred: ClippedAdamW):
+        self.recon, self.loss_pred = recon, loss_pred
+
+    @property
+    def param_groups(self):
+        return self.recon.param_groups + self.loss_pred.param_groups
+
+    @property
+    def scheduled_param_groups(self):
+        # the loss-prediction half keeps its constant rate
+        return self.recon.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.recon.zero_grad(set_to_none=set_to_none)
+        self.loss_pred.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.recon.step()
+        self.loss_pred.step()
+
+    def state_dict(self) -> dict:
+        return {"recon": self.recon.state_dict(), "loss_pred": self.loss_pred.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.recon.load_state_dict(state["recon"])
+        self.loss_pred.load_state_dict(state["loss_pred"])
+
+
+def build_gm3d_separated_optimizer(student: nn.Module, learning_rate: float,
+                                   weight_decay: float = 0.05, betas=(0.9, 0.95),
+                                   accum_steps: int = 1, grad_clip: Optional[float] = 5.0,
+                                   loss_pred_learning_rate: Optional[float] = None):
+    """``--no-shared_opt``: ``SeparatedAdamW`` over ``gm3d_separated_labels``,
+    each half ``build_adamw``'s (decay on >=2-d parameters, clip
+    ``grad_clip``). The caller schedules the recon half's learning rate
+    (``scheduled_param_groups``); the loss-prediction half trains at the
+    constant ``loss_pred_learning_rate`` (the separated engine never schedules
+    it), ``learning_rate`` if not given."""
+    labels = gm3d_separated_labels(student)
+    params = dict(student.named_parameters())
+
+    def half(label: str, lr: float) -> ClippedAdamW:
+        named = [(n, params[n]) for n, lab in labels.items()
+                 if lab == label and params[n].requires_grad]
+        return build_adamw(named, lr, weight_decay, betas, grad_clip)
+
+    lp_lr = learning_rate if loss_pred_learning_rate is None else loss_pred_learning_rate
+    return accumulate(SeparatedAdamW(half("recon", learning_rate), half("loss_pred", lp_lr)),
+                      accum_steps)

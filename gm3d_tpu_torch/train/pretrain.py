@@ -1,8 +1,10 @@
 """The pretrain steps: GM3D, the Point-MAE teacher's, and the supervised probe's.
 
-Port of ``gm3d_tpu/train/pretrain.py::gm3d_forward_distill``,
-``::make_gm3d_train_step`` in the default set-up (shared optimizer),
-``::make_pointmae_train_step`` and ``::make_probe_step``. One GM3D step:
+Port of ``gm3d_tpu/train/pretrain.py::make_gm3d_train_step`` (shared or
+separated optimizers, gradient accumulation, ``remat_student``, fp32 or bf16
+compute; the JAX ``gm3d_forward_distill`` is its steps 6 - 7 here),
+``::make_pointmae_train_step``, ``::make_multi_step`` and
+``::make_probe_step``. One GM3D step:
 
   1. augment            (``scale_and_translate``)
   2. ONE grouping       (FPS + KNN kernels), shared by the three passes
@@ -21,10 +23,8 @@ place. The epoch-dependent knobs (``ema_decay``, ``keep_ratio``, ``w_mse``,
 ``torch.Generator`` or are handed in (``draws``), so that a test can feed the
 JAX step's own draws.
 
-Not ported yet (each raises ``NotImplementedError``): ``shared_opt=False``,
-``distill_mode='clip'``, ``quantize_ema``, ``remat_student``,
-``accum_steps > 1``, the multi-step scan and the other train steps of the
-JAX module.
+Not ported yet (each raises ``NotImplementedError``): ``distill_mode='clip'``,
+``quantize_ema`` and the M2AE train steps of the JAX module.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gm3d_tpu_torch.data.transforms import scale_and_translate
 from gm3d_tpu_torch.masking import block_mask, geometric_mask, gm3d_num_mask, random_mask
@@ -107,43 +108,84 @@ def make_pointmae_train_step(model: PointMAE, optimizer: torch.optim.Optimizer,
     return step
 
 
-def gm3d_forward_distill(student: GM3DStudent, teacher: PointMAE, samples: torch.Tensor,
-                         mask: torch.Tensor, num_mask: int, shared_learnable_tokens: bool,
-                         grouped: Optional[Grouped] = None, detach_loss_pred: bool = False,
-                         teacher_tokens: Optional[torch.Tensor] = None,
-                         fused_teacher_attention: bool = False,
-                         generator: Optional[torch.Generator] = None,
-                         mark: Callable[[str], None] = lambda stage: None):
-    """Student forward + frozen-teacher complete-to-partial replay.
-
-    The teacher encodes the FULL cloud; its decoder replays (a) its own
-    features at all centers -> point_target and (b) the student's predicted
-    masked features at the masked centers -> point_reconstructed. The whole
-    teacher block runs without gradient. The student runs in whatever mode
-    (train / eval) it is in; the caller's ``fused_attention_scope`` applies
-    to it, ``fused_teacher_attention`` to the teacher. ``mark(stage)`` is
-    called when a stage has been enqueued (``scripts/profile_pretrain.py``)."""
-    outs = student(samples, mask, num_mask, shared_learnable_tokens, grouped=grouped,
-                   detach_loss_pred_branch=detach_loss_pred, generator=generator)
-    mark("student_forward")
-    same_grouping = (teacher.num_group == student.num_group
-                     and teacher.group_size == student.group_size)
-    teacher_grouped = grouped if same_grouping else None
+def teacher_replay(teacher: PointMAE, samples: torch.Tensor, outs: dict, num_mask: int,
+                   grouped: Optional[Grouped] = None,
+                   teacher_tokens: Optional[torch.Tensor] = None,
+                   fused_teacher_attention: bool = False):
+    """The frozen teacher's half of the JAX ``gm3d_forward_distill``, as
+    ``make_gm3d_train_step`` runs it on the student's outputs ``outs``: it
+    encodes the FULL cloud; its decoder replays (a) its own features at all
+    centers -> point_target and (b) the student's predicted masked features
+    at the masked centers -> point_reconstructed.
+    All without gradient. ``grouped`` (and ``teacher_tokens``, its patch
+    embed) only where the teacher groups as the student does. Returns
+    ``(teacher_feats, point_target, point_reco, pred_masked)``."""
     pred_masked = outs["pix_pred"][:, -num_mask:] if num_mask else outs["pix_pred"]
     with torch.no_grad(), fused_attention_scope(fused_teacher_attention):
         teacher_feats = teacher.encode_features(
-            samples, grouped=teacher_grouped,
-            tokens=teacher_tokens if teacher_grouped is not None else None)  # (B, G, D)
+            samples, grouped=grouped,
+            tokens=teacher_tokens if grouped is not None else None)  # (B, G, D)
         centers = outs["center"]
         point_target = teacher.decode_replay(teacher_feats, centers)  # (B, G, S, 3)
         centers_masked = take_groups(centers, outs["mask_idx"])
         point_reco = teacher.decode_replay(pred_masked.detach(), centers_masked)  # (B, M, S, 3)
-    mark("teacher")
-    return outs, teacher_feats, point_target, point_reco, pred_masked
+    return teacher_feats, point_target, point_reco, pred_masked
+
+
+class _Remat:
+    """``remat_student``: the student's forward under ``torch.utils.checkpoint``
+    (non-reentrant), so its activations are dropped after the forward and
+    recomputed in the backward (``jax.checkpoint(loss_fn)`` in the JAX step).
+
+    The recompute must be the same computation, and three things would make
+    it another:
+
+      - drop path draws its masks from the step's explicit generator, which
+        checkpoint's ``preserve_rng_state`` does not restore (it restores
+        only the default generators): every run of the forward starts from
+        the generator's state before the first one;
+      - the recompute runs on autograd's thread, where the context variable
+        of ``fused_attention_scope`` has its default: the forward enters the
+        step's attention route itself;
+      - the train-mode BatchNorms would move their running statistics a
+        second time.
+
+    ``restore()``, called after the backward, puts back the generator's and
+    the BatchNorms' state as the first forward left them (a recompute may
+    stop early, part-way through the draws)."""
+
+    def __init__(self, module: nn.Module, generator: Optional[torch.Generator],
+                 fused_attention: bool):
+        self.module, self.generator, self.fused_attention = module, generator, fused_attention
+        self.after = None
+
+    def __call__(self, fn: Callable[[], dict]) -> dict:
+        gen = self.generator
+        before = gen.get_state() if gen is not None else None
+
+        def run():
+            if before is not None:
+                gen.set_state(before)
+            with fused_attention_scope(self.fused_attention):
+                return fn()
+
+        outs = checkpoint(run, use_reentrant=False)
+        self.after = (gen.get_state() if gen is not None else None,
+                      [b.detach().clone() for b in self.module.buffers()])
+        return outs
+
+    def restore(self) -> None:
+        gen_state, buffers = self.after
+        if gen_state is not None:
+            self.generator.set_state(gen_state)
+        with torch.no_grad():
+            for b, saved in zip(self.module.buffers(), buffers):
+                b.copy_(saved)
+        self.after = None
 
 
 def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
-                         optimizer: torch.optim.Optimizer, mask_ratio: float = 0.6,
+                         optimizer, mask_ratio: float = 0.6,
                          shared_learnable_tokens: bool = False, relative: bool = True,
                          augment: bool = True, distill_mode: str = "dino",
                          shared_opt: bool = True, use_fused_embed: bool = True,
@@ -156,36 +198,59 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     ``student`` and ``optimizer`` must be the ones in the ``TrainState`` the
     step is called with; ``teacher`` is frozen (eval mode, no gradient).
     ``device``: where the step runs; the default needs a GPU and raises
-    without one, ``"cpu"`` must be asked for. The models are expected there.
+    without one, ``"cpu"`` must be asked for. The models are expected there,
+    in their compute dtype (``--bf16``: bf16 compute, fp32 parameters).
 
     ``distill_mode``: 'dino' = frozen Point-MAE teacher; 'ema' = feature
     targets from the EMA's unmasked features, no teacher replay; 'none' =
     usual-mode Chamfer only.
 
+    ``shared_opt=False`` (pair it with ``build_gm3d_separated_optimizer``):
+    the loss-prediction branch is detached at the encoder, so one backward
+    gives each optimizer its own loss; under 'dino' the separated engine's
+    loss (``gm3d_separated_loss``: feature MSE against the teacher's encoder
+    plus the student's own Chamfer, no teacher replay), which needs
+    ``mode='feature'``.
+
+    ``accum_steps`` (pair it with an optimizer built with the same count):
+    the optimizer updates on every ``accum_steps``-th call, and the EMA moves
+    on those calls only; the student's BatchNorm statistics move on every
+    call. ``remat_student``: the student's activations are recomputed in the
+    backward (``_Remat``).
+
     ``step`` returns ``(state, metrics)``: the six scalars of the JAX step as
-    0-d tensors on the device (no host synchronisation inside the step).
+    0-d tensors on the device (no host synchronisation inside the step);
+    ``grad_norm`` is this call's gradient norm, not the accumulation's.
     ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and ``noise`` (B, G).
     ``mark(stage)``, if given, is called each time a stage of the step has
     been enqueued (``scripts/profile_pretrain.py`` records CUDA events there).
     """
-    if not shared_opt:
-        raise NotImplementedError(
-            "shared_opt=False (two optimizers, gm3d_separated_loss) is not ported yet")
     if distill_mode == "clip":
         raise NotImplementedError("distill_mode='clip' waits for the port of models/clip.py")
     if quantize_ema:
         raise NotImplementedError("quantize_ema waits for the port of serve/quantize.py")
-    if remat_student:
-        raise NotImplementedError("remat_student (activation checkpointing) is not ported yet")
-    if accum_steps > 1:
-        raise NotImplementedError("accum_steps > 1 (gradient accumulation) is not ported yet")
     if distill_mode not in ("dino", "ema", "none"):
         raise ValueError(f"distill_mode must be 'dino', 'ema', 'none' or 'clip', "
                          f"got {distill_mode!r}")
+    if getattr(optimizer, "accum_steps", 1) != accum_steps:
+        raise ValueError(f"the step accumulates {accum_steps} micro-batches, the optimizer "
+                         f"{getattr(optimizer, 'accum_steps', 1)}")
     dev = resolve_device(device)
     num_mask = gm3d_num_mask(student.num_group, mask_ratio)
     use_distill = teacher is not None and distill_mode == "dino"
+    # the separated engine's loss: feature MSE against the teacher's encoder and
+    # the student's own Chamfer, inside the gradient; no teacher replay
+    use_sep_distill = use_distill and not shared_opt
+    if use_sep_distill and student.mode != "feature":
+        raise ValueError(
+            "--no-shared_opt with distill_mode='dino' requires mode='feature' "
+            "(the separated loss consumes decoder features; use "
+            "distill_mode='none' for usual mode)")
     use_ema_feats = distill_mode == "ema"
+    # two optimizers: the learning loss must not reach the encoder
+    detach_lp = not shared_opt
+    same_grouping = teacher is not None and (teacher.num_group == student.num_group
+                                             and teacher.group_size == student.group_size)
     if teacher is not None:
         teacher.eval()
         for p in teacher.parameters():
@@ -233,31 +298,42 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             mark("ema_forward_mask")
 
         student.train()
+        remat = _Remat(student, generator, use_fused_attention) if remat_student else None
+
+        def student_forward() -> dict:
+            return student(samples, mask, num_mask, shared_learnable_tokens, grouped=grouped,
+                           detach_loss_pred_branch=detach_lp, generator=generator)
+
         with fused_attention_scope(use_fused_attention):
-            if use_distill:
-                outs, teacher_feats, point_target, point_reco, pred_masked = (
-                    gm3d_forward_distill(
-                        student, teacher, samples, mask, num_mask, shared_learnable_tokens,
-                        grouped=grouped, teacher_tokens=teacher_tokens,
-                        fused_teacher_attention=use_fused_attention, generator=generator,
-                        mark=mark))
+            outs = remat(student_forward) if remat is not None else student_forward()
+            mark("student_forward")
+            if use_sep_distill:
+                with torch.no_grad():
+                    teacher_feats = teacher.encode_features(
+                        samples, grouped=grouped if same_grouping else None,
+                        tokens=teacher_tokens if same_grouping else None)
+                mark("teacher")
+                loss_outs = losses.gm3d_separated_loss(
+                    outs["pix_pred"][:, -num_mask:], teacher_feats, outs["mask_idx"],
+                    outs["rebuild_points"][:, -num_mask:], outs["neighborhood"])
+            elif use_distill:
+                teacher_feats, point_target, point_reco, pred_masked = teacher_replay(
+                    teacher, samples, outs, num_mask, grouped if same_grouping else None,
+                    teacher_tokens, use_fused_attention)
+                mark("teacher")
                 loss_outs = losses.gm3d_feature_loss(
                     pred_masked, teacher_feats, outs["mask_idx"], point_target, point_reco)
+            elif use_ema_feats:
+                # feature targets from the EMA's unmasked pass: normalised
+                # feature MSE at masked slots (in fp32), no point-space replay
+                target = take_groups(outs_ema["features"].detach(), outs["mask_idx"])
+                mse = losses._normalized_feature_mse(outs["pix_pred"][:, -num_mask:], target)
+                loss_outs = {"MSE_mean": mse.mean(),
+                             "Chamfer_mean": torch.zeros((), device=dev), "matrix": mse}
             else:
-                outs = student(samples, mask, num_mask, shared_learnable_tokens,
-                               grouped=grouped, generator=generator)
-                mark("student_forward")
-                if use_ema_feats:
-                    # feature targets from the EMA's unmasked pass: normalised
-                    # feature MSE at masked slots, no point-space replay
-                    target = take_groups(outs_ema["features"].detach(), outs["mask_idx"])
-                    mse = losses._normalized_feature_mse(outs["pix_pred"][:, -num_mask:], target)
-                    loss_outs = {"MSE_mean": mse.mean(),
-                                 "Chamfer_mean": torch.zeros((), device=dev), "matrix": mse}
-                else:
-                    loss_outs = losses.gm3d_usual_loss(
-                        outs["rebuild_points"][:, -num_mask:], outs["neighborhood"],
-                        outs["mask_idx"])
+                loss_outs = losses.gm3d_usual_loss(
+                    outs["rebuild_points"][:, -num_mask:], outs["neighborhood"],
+                    outs["mask_idx"])
 
             loss = (scalars["w_mse"] * loss_outs["MSE_mean"]
                     + scalars["w_cd"] * loss_outs["Chamfer_mean"])
@@ -269,14 +345,20 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                 loss_learn = losses.mse_learning_loss(loss_pred_masked, matrix)
             total = loss + loss_learn
             mark("losses")
-            optimizer.zero_grad(set_to_none=True)
+            # every parameter's, also those no optimizer owns (grad_norm reads them)
+            student.zero_grad(set_to_none=True)
             total.backward()
+            if remat is not None:
+                remat.restore()
             mark("backward")
 
         # the norm over every trainable parameter, a missing gradient as zero
         grad_norm = global_norm(p.grad for p in trainable if p.grad is not None)
         optimizer.step()
-        ema_update(ema, student, scalars["ema_decay"])
+        # under accumulation the EMA moves on the update's call only (its
+        # decay is 1 on the others in the JAX step)
+        if (state.step + 1) % accum_steps == 0:
+            ema_update(ema, student, scalars["ema_decay"])
         state.step += 1
         mark("optimizer_ema")
         metrics = {
@@ -295,10 +377,28 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     return step
 
 
-def make_multi_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_multi_step (several steps in one dispatch) is not ported yet: "
-        "the torch step runs eagerly and has no dispatch to amortise")
+def make_multi_step(step_fn: Callable, has_scalars: bool = True) -> Callable:
+    """``multi(state, pts_stack, generator, scalars=None, draws=None)``: K
+    calls of ``step_fn`` over the K batches of ``pts_stack`` (K, B, N, 3), in
+    order (``gm3d_tpu/train/pretrain.py::make_multi_step``, a ``lax.scan``
+    there; the port's step runs eagerly, so this is a loop and saves no
+    dispatch). ``has_scalars``: the GM3D step takes ``scalars``, the
+    teacher's does not. ``draws``, if given, holds each draw stacked on a
+    leading K axis. Returns the final state and each metric stacked over the
+    K steps, as the scan returns them."""
+
+    def multi(state: TrainState, pts_stack: torch.Tensor,
+              generator: Optional[torch.Generator], scalars=None,
+              draws: Optional[Mapping[str, torch.Tensor]] = None):
+        history = []
+        for k in range(pts_stack.shape[0]):
+            step_draws = None if draws is None else {n: v[k] for n, v in draws.items()}
+            extra = (scalars,) if has_scalars else ()
+            state, metrics = step_fn(state, pts_stack[k], generator, *extra, draws=step_draws)
+            history.append(metrics)
+        return state, {n: torch.stack([m[n] for m in history]) for n in history[0]}
+
+    return multi
 
 
 def _not_ported(name: str):

@@ -241,8 +241,11 @@ def test_adamw_groups_decay_only_matrices_and_skip_frozen_modules():
     assert all(id(p) in owned for p in rest)
     usual = topt.build_gm3d_shared_optimizer(student, 1e-3, frozen_modules=())
     assert sum(len(g["params"]) for g in usual.param_groups) == len(rest) + 2
-    with pytest.raises(NotImplementedError):
-        topt.build_gm3d_shared_optimizer(student, 1e-3, accum_steps=2)
+    # accumulation wraps the same groups (held against optax.MultiSteps in
+    # tests/test_torch_port_accumulation.py)
+    accum = topt.build_gm3d_shared_optimizer(student, 1e-3, accum_steps=2)
+    assert accum.accum_steps == 2 and accum.inner.grad_clip == 5.0
+    assert {id(p) for g in accum.param_groups for p in g["params"]} == owned
 
 
 def test_ema_update_averages_parameters_and_bn_buffers():

@@ -89,10 +89,11 @@ def _example():
     return jnp.asarray(next(iter(loader)))
 
 
-def _init_variables(mode):
-    """What the JAX CLI's ``init`` gives its student (key 1) and teacher (key 2)."""
+def _init_variables(mode, legacy=False):
+    """What the JAX CLI's ``init`` gives its student (key 1) and teacher (key 2);
+    ``legacy``: the older student, which has no decoder positional embedding."""
     example = _example()
-    student = JGM3DStudent(mode=mode, **SMALL)
+    student = JGM3DStudent(mode=mode, shared_pos_embed=legacy, **SMALL)
     num_mask = jgm3d_num_mask(student.num_group, 0.6)
     mask0 = jnp.zeros((2, student.num_group), bool).at[:, :num_mask].set(True)
     svars = student.init(jax.random.key(1), example[:2], mask0, num_mask)
@@ -136,7 +137,9 @@ def _run_jax(monkeypatch, out_dir, mode_flags):
 
 def _run_port(monkeypatch, out_dir, mode_flags, svars, tvars):
     def student(args, mode, dtype):
-        return load_flax_variables(GM3DStudent(mode=mode, **SMALL), svars, GM3D_STUDENT_MAP)
+        model = GM3DStudent(mode=mode, shared_pos_embed=args.student_variant == "legacy",
+                            **SMALL)
+        return load_flax_variables(model, svars, GM3D_STUDENT_MAP)
 
     def teacher(args, cfg, dtype):
         return load_flax_variables(PointMAE(**SMALL), tvars, POINT_MAE_MAP)
@@ -150,11 +153,25 @@ def _run_port(monkeypatch, out_dir, mode_flags, svars, tvars):
     return records
 
 
-@pytest.mark.parametrize("loss, mode", [("dino", "feature"), ("none", "usual")])
-def test_the_two_clis_agree(loss, mode, monkeypatch, tmp_path):
-    flags = ["--learn_feature_loss", loss]
+# (--learn_feature_loss, the student's mode, more flags, the learning rate at the
+# warm-up's peak): the defaults in two modes; the legacy student variant (which
+# forces none); two micro-batches an update with the separated optimizers, whose
+# effective learning rate doubles (blr x batch x accum_iter / 256)
+CLI_CASES = {
+    "dino": ("dino", "feature", [], 1e-3),
+    "none": ("none", "usual", [], 1e-3),
+    "legacy": ("dino", "usual", ["--student_variant", "legacy"], 1e-3),
+    "dino-accum2-separated": ("dino", "feature", ["--accum_iter", "2", "--no-shared_opt"],
+                              2e-3),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_the_two_clis_agree(case, monkeypatch, tmp_path):
+    loss, mode, extra, peak_lr = CLI_CASES[case]
+    flags = ["--learn_feature_loss", loss, *extra]
     want = _run_jax(monkeypatch, tmp_path / "jax", flags)
-    svars, tvars = _init_variables(mode)
+    svars, tvars = _init_variables(mode, legacy="legacy" in extra)
     got = _run_port(monkeypatch, tmp_path / "port", flags, svars, tvars)
     assert len(got) == len(want) == EPOCHS
     for g, w in zip(got, want):
@@ -164,7 +181,7 @@ def test_the_two_clis_agree(loss, mode, monkeypatch, tmp_path):
         for key in METRICS:
             assert math.isfinite(g[key]), key
             np.testing.assert_allclose(g[key], w[key], rtol=2e-4,
-                                       err_msg=f"{loss} epoch {g['epoch']} {key}")
+                                       err_msg=f"{case} epoch {g['epoch']} {key}")
     # --val_freq 1: a probe after each epoch, within one test cloud of the JAX CLI's
     for g, w in zip(got, want):
         assert abs(g["val_svm_acc"] - w["val_svm_acc"]) <= 1.0 / SVM_TEST_CLOUDS + 1e-12
@@ -177,7 +194,7 @@ def test_the_two_clis_agree(loss, mode, monkeypatch, tmp_path):
     assert jlatest_step(str(tmp_path / "jax" / "ckpt" / "best")) == (
         accs.index(max(accs)) + 1) * (SAMPLES // BATCH)
     # the warm-up's peak after epoch 0, the cosine's end after epoch 1
-    np.testing.assert_allclose([g["lr"] for g in got], [1e-3, 0.0], rtol=1e-6, atol=0)
+    np.testing.assert_allclose([g["lr"] for g in got], [peak_lr, 0.0], rtol=1e-6, atol=0)
     assert (tmp_path / "port" / "pretrain.log").read_text().count("epoch 1: loss=") == 1
     assert any((tmp_path / "port" / "tfboard").iterdir())
 
@@ -228,10 +245,86 @@ def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
 
 NOT_PORTED = [
     ["--model_family", "m2ae"], ["--model_family", "m2ae_gm3d"],
-    ["--learn_feature_loss", "clip"], ["--student_variant", "legacy"], ["--accum_iter", "2"],
-    ["--no-shared_opt"], ["--bf16"],
-    ["--quantize_ema"], ["--num_devices", "2"], ["--native_loader"],
+    ["--learn_feature_loss", "clip"], ["--quantize_ema"], ["--num_devices", "2"],
+    ["--native_loader"],
 ]
+
+
+def test_the_legacy_variant_is_refused_for_other_families(tmp_path):
+    """``gm3d_tpu/cli/pretrain.py:203-210``: the legacy semantics exist for
+    the GM3D student only; both CLIs exit with the same message."""
+    want = "--student_variant legacy is only defined for --model_family gm3d (got 'pointmae')"
+    _reset_gm3d_loggers()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--config", "configs/pointmae/config_m.yaml", "--model_family", "pointmae",
+                  "--student_variant", "legacy", "--synthetic", "--device", "cpu",
+                  "--output_dir", str(tmp_path)])
+    assert str(e.value.code) == want
+    assert not (tmp_path / "log.txt").exists()
+
+
+def test_epoch_scalars_of_the_legacy_variant_are_the_jax_clis():
+    """The legacy variant's uncapped slope-0.5 ramp (``keep_ratio_schedule``
+    with ``legacy=True``), not usual mode's capped one."""
+    args = cli.parse_args(FLAGS + ["--student_variant", "legacy", "--learn_feature_loss",
+                                   "none"])
+    for epoch in range(8):
+        assert cli.epoch_scalars(args, epoch, 8)["keep_ratio"] == jkeep_ratio_schedule(
+            epoch, 8, False, legacy=True)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The small models' tensors are tiny: torch's intra-op threads only
+    contend with the other test workers'; the count comes back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_accumulation_separated_and_bf16_together(monkeypatch, tmp_path):
+    """``--accum_iter 2 --no-shared_opt --bf16`` (the card's CLI run, small
+    here): one epoch of four micro-steps, two updates; finite records; the
+    checkpoint holds the window's accumulation (closed: count 0, two
+    updates) and both halves of the optimizer, and ``--resume`` reads it."""
+    from gm3d_tpu_torch.ckpt.checkpoint import latest_step, restore_raw
+
+    _small_models(monkeypatch)
+    flags = [*SMALL_RUN, "--learn_feature_loss", "dino", "--epochs", "1", "--accum_iter", "2",
+             "--no-shared_opt", "--bf16", "--output_dir", str(tmp_path)]
+    _reset_gm3d_loggers()
+    records = cli.main(flags)
+    assert [(r["epoch"], r["steps"]) for r in records] == [(0, 4)]
+    assert all(math.isfinite(records[0][k]) for k in METRICS)
+    raw = restore_raw(str(tmp_path / "ckpt"))
+    assert raw["step"] == 4 and latest_step(str(tmp_path / "ckpt")) == 4
+    assert (raw["optimizer"]["mini_step"], raw["optimizer"]["gradient_step"]) == (0, 2)
+    assert set(raw["optimizer"]["inner"]) == {"recon", "loss_pred"}
+    _reset_gm3d_loggers()
+    again = cli.main([*flags[:-2], "--epochs", "2", "--output_dir", str(tmp_path), "--resume"])
+    assert [(r["epoch"], r["steps"]) for r in again] == [(1, 4)]
+    assert "resumed from step 4" in (tmp_path / "pretrain.log").read_text()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_a_probe_at_its_iteration_cap_warns_and_the_run_goes_on(monkeypatch, tmp_path):
+    """The SVC stops at ``MAX_ITER`` (2 here) far from converged: the epoch
+    ends, its record holds ``val_svm_acc`` and ``val_svm_gap`` (the largest
+    pair's KKT gap, above the tolerance), and ``pretrain.log`` says so."""
+    from gm3d_tpu_torch.eval import linear_svc
+
+    _small_models(monkeypatch)
+    monkeypatch.setattr(linear_svc, "MAX_ITER", 2)
+    _reset_gm3d_loggers()
+    with pytest.warns(linear_svc.ConvergenceWarning):
+        records = cli.main([*SMALL_RUN, "--epochs", "1", "--synthetic_samples", "8",
+                            "--sync_probe", "--output_dir", str(tmp_path)])
+    assert len(records) == 1 and 0.0 <= records[0]["val_svm_acc"] <= 1.0
+    assert records[0]["val_svm_gap"] > linear_svc.TOL
+    text = (tmp_path / "pretrain.log").read_text()
+    assert "the linear SVC stopped at its cap of 2 iterations" in text
 
 
 @pytest.mark.parametrize("flags", NOT_PORTED, ids=lambda f: " ".join(f))

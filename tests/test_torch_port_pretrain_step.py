@@ -285,9 +285,7 @@ def test_other_distill_modes_one_step(mode):
     assert (got["loss_chfr"] == 0.0) if mode == "ema" else (got["loss_mse"] == 0.0)
 
 
-@pytest.mark.parametrize("option", [
-    {"shared_opt": False}, {"distill_mode": "clip"}, {"quantize_ema": True},
-    {"remat_student": True}, {"accum_steps": 2}])
+@pytest.mark.parametrize("option", [{"distill_mode": "clip"}, {"quantize_ema": True}])
 def test_deferred_options_raise(option):
     student = GM3DStudent(**SMALL)
     optimizer = build_gm3d_shared_optimizer(student, LR)
@@ -322,7 +320,6 @@ def _probe_features_of_a_model_that_pools_its_own():
 
 # what each deferred step raises, and the words that say why
 DEFERRED = {
-    "make_multi_step": (lambda: tp.make_multi_step(), "not ported"),
     "make_pointmae_train_step": (_pointmae_step_with_the_emd_loss, r"ops/emd\.py"),
     "make_m2ae_train_step": (lambda: tp.make_m2ae_train_step(), "not ported"),
     "make_m2ae_gm3d_train_step": (lambda: tp.make_m2ae_gm3d_train_step(), "not ported"),
@@ -330,9 +327,8 @@ DEFERRED = {
 }
 
 
-@pytest.mark.parametrize("name", ["make_multi_step", "make_pointmae_train_step",
-                                  "make_m2ae_train_step", "make_m2ae_gm3d_train_step",
-                                  "make_probe_step"])
+@pytest.mark.parametrize("name", ["make_pointmae_train_step", "make_m2ae_train_step",
+                                  "make_m2ae_gm3d_train_step", "make_probe_step"])
 def test_deferred_steps_raise(name):
     call, why = DEFERRED[name]
     with pytest.raises(NotImplementedError, match=why):

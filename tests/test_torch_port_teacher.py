@@ -119,8 +119,49 @@ def test_legacy_adamw_decays_the_parameters_the_jax_mask_decays():
     assert got == want and len(got) > 50
     assert "mask_token" in [names[id(p)] for p in no_decay["params"]]
     assert len(decay["params"]) + len(no_decay["params"]) == len(names) == len(flags)
-    with pytest.raises(NotImplementedError, match="item 1c"):
-        build_legacy_adamw(model.named_parameters(), 1e-3, accum_steps=2)
+    # accumulation wraps the same two groups and sums (the mean, scaled by 2)
+    summed = build_legacy_adamw(model.named_parameters(), 1e-3, 0.05, accum_steps=2)
+    assert summed.accum_steps == 2 and summed.scale == 2.0
+    assert [len(g["params"]) for g in summed.param_groups] == [len(decay["params"]),
+                                                                len(no_decay["params"])]
+
+
+def test_legacy_adamw_accumulation_sums_and_clips_as_optax():
+    """``build_legacy_adamw(accum_steps=2, grad_clip=1.0)`` against the JAX
+    one (``optax.MultiSteps`` of ``scale(2)`` and the clipped AdamW) on the
+    same gradients, four micro-steps: the first and third move nothing, the
+    second and fourth update on the SUM of their window, clipped to norm 1
+    (the sums' norms are far above it). Parameters to 1e-6."""
+    rng = np.random.default_rng(6)
+    shapes = _flax_shapes(JPointMAE(**SMALL), NUM_MASK)["params"]
+    params = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32) * 0.1,
+                          shapes)
+    model = PointMAE(**SMALL)
+    model.load_state_dict(state_dict_from_flax({"params": params}, POINT_MAE_MAP), strict=False)
+    optimizer = build_legacy_adamw(model.named_parameters(), LR, 0.05, accum_steps=2,
+                                   grad_clip=1.0)
+    tx = jbuild_legacy_adamw(LR, 0.05, accum_steps=2, grad_clip=1.0)
+    jparams = jax.tree.map(jnp.asarray, params)
+    opt_state = tx.init(jparams)
+    update = jax.jit(tx.update)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for i in range(4):
+        grads = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+        updates, opt_state = update(jax.tree.map(jnp.asarray, grads), opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tgrads = state_dict_from_flax({"params": grads}, POINT_MAE_MAP)
+        for name, p in model.named_parameters():
+            p.grad = tgrads[name].clone()
+        assert optimizer.step() == (i % 2 == 1)
+        want = state_dict_from_flax({"params": jax.tree.map(np.asarray, jparams)},
+                                    POINT_MAE_MAP)
+        for name, p in model.named_parameters():
+            if i % 2 == 0:
+                assert torch.equal(p.detach(), before[name]), (i, name)
+            np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-6,
+                                       rtol=0, err_msg=f"micro-step {i} {name}")
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    assert optimizer.gradient_step == 2 and optimizer.mini_step == 0
 
 
 def test_three_legacy_adamw_steps_equal_optax():
