@@ -74,6 +74,22 @@ Phases, each printing one JSON line when it ends:
               ``TOL_BF16``; clouds per second, peak memory; the attention
               kernels' time inside a traced bf16 step), and the CLI with ``--accum_iter 2 --no-shared_opt
               --bf16`` for one epoch (its record, launches, checkpoint)
+  finetune    pretrain -> finetune -> export -> serve inside the port: a
+              ModelNet-layout directory of synthetic 8,192-point clouds in 40
+              classes (from ``--seed``) read by the ModelNet reader; one epoch
+              of the GM3D pretrain CLI; the finetune CLI
+              (``configs/pointmae/finetune_modelnet.yaml``, full width, B 32)
+              from that checkpoint for two epochs with ``--vote``, once a
+              recipe (``legacy``, ``hpm``): its records, more than 100 keys
+              transferred, ``ckpt/best``, clouds per second of each epoch,
+              launches (FPS 2 and KNN 1 a train step, an eval batch and a vote
+              batch, no patch-embed or attention kernel, as the JAX steps
+              route it); FPS 8192 -> 1200 index-equal to its plain version and
+              its CUDA-graph time; the bare step's ms and clouds per second,
+              fp32 and bf16, the eval and vote ms a batch; ``ckpt/best``
+              exported with 8,192-point inputs, served by
+              ``gm3d_tpu_torch.cli.serve`` in a process of its own, its logits
+              within ``TOL_SERVE`` of the eval step's
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -84,7 +100,7 @@ printed. The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases env,build,train`` (development only) runs some of the list and
 prints no result line. ``--seed`` (default 0) draws the phase ``probe``'s
-features.
+features and the phase ``finetune``'s clouds.
 """
 
 from __future__ import annotations
@@ -96,6 +112,7 @@ import itertools
 import json
 import logging
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -1257,10 +1274,11 @@ SVC_DEC_TOL = 1e-4
 PROBE_LINE = re.compile(r"svm probe of epoch (\d+): acc ([0-9.]+); (.*)")
 
 
-def _fresh_cli_logger() -> None:
-    """The CLI configures its "gm3d" logger once a process (its first run's
-    ``pretrain.log``): drop that, so that the next run writes its own."""
-    logger = logging.getLogger("gm3d")
+def _fresh_cli_logger(name: str = "gm3d") -> None:
+    """A CLI configures its logger (``name``) once a process (its first run's
+    ``pretrain.log`` or ``finetune.log``): drop that, so that the next run
+    writes its own."""
+    logger = logging.getLogger(name)
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
@@ -1645,9 +1663,270 @@ def phase_step_options(env: dict, trained: dict | None, tmp: str) -> dict:
     emit(res)
     return {"launches": res["launches"]}
 
+# the finetune path: configs/pointmae/finetune_modelnet.yaml at full width, B 32,
+# on a ModelNet-layout directory of synthetic 8,192-point clouds in 40 classes
+FT_CONFIG = CONFIG
+FT_BATCH, FT_TRAIN, FT_TEST, FT_POINTS, FT_EPOCHS = 32, 512, 128, 8192, 2
+FT_NPOINTS, FT_POINT_ALL = 1024, 1200
+# launches the JAX finetune code implies: the train step FPS to point_all (the
+# cloud is larger, gm3d_tpu/train/finetune.py:75-76), then one grouping (FPS,
+# KNN) in the model; the eval step FPS to npoints (:154), then the grouping;
+# the vote step FPS to point_all once (:177), then one grouping of the ten
+# votes stacked into one forward. No fused attention, no fused patch embed on
+# any of them (:103-107, :158-159)
+FT_LAUNCHES_PER_STEP = {"fps": 2, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
+                        "attention_bwd": 0}
+FT_RECORD_KEYS = {"loss", "acc", "grad_norm", "epoch", "time", "val_acc"}
+TOL_SERVE = 2e-3
+
+
+def _modelnet_dir(root: str, seed: int) -> str:
+    """A ModelNet40 directory as the reader finds it: the shape names, the two
+    split lists and the FPS caches it reads first (``modelnet40_*_8192pts_fps.dat``),
+    holding synthetic clouds of FT_POINTS points, a few gaussian blobs a class."""
+    rng = np.random.default_rng(seed)
+    names = [f"shape{c:02d}" for c in range(40)]
+    blobs = rng.standard_normal((40, 8, 3)).astype(np.float32)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(names))
+    for split, n in (("train", FT_TRAIN), ("test", FT_TEST)):
+        labels = np.arange(n) % 40
+        which = rng.integers(0, 8, (n, FT_POINTS))
+        pts = blobs[labels[:, None], which] + 0.15 * rng.standard_normal(
+            (n, FT_POINTS, 3), dtype=np.float32)
+        ids = [f"{names[c]}_{i:04d}" for i, c in enumerate(labels)]
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(ids))
+        with open(os.path.join(root, f"modelnet40_{split}_8192pts_fps.dat"), "wb") as f:
+            pickle.dump((pts.astype(np.float32), labels.astype(np.int64)), f)
+    return root
+
+
+def _finetune_config(tmp: str, data: str) -> str:
+    import yaml
+
+    with open(FT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    for split in ("train", "val", "test"):
+        cfg["dataset"][split]["_base_"]["DATA_PATH"] = data
+    path = os.path.join(tmp, "finetune_modelnet_local.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
+    """``python -m gm3d_tpu_torch.cli.serve`` in a process of its own: wait for
+    /health, POST the clouds (one JSON request of one cloud, then the rest as
+    one .npy request), stop it with SIGTERM. Returns the served logits."""
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "gm3d_tpu_torch.cli.serve",
+                                 "--artifact", art, "--port", str(port)],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            check(proc.poll() is None, f"the server exited early ({log_path})")
+            check(time.monotonic() < deadline, "the server did not come up")
+            try:
+                if _http(base + "/health")[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.2)
+        status, one = _http(base + "/predict",
+                            json.dumps({"points": clouds[0].tolist()}).encode())
+        check(status == 200, status)
+        buf = io.BytesIO()
+        np.save(buf, clouds[1:])
+        status, rest = _http(base + "/predict", buf.getvalue(), "application/octet-stream")
+        check(status == 200, status)
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=60) == 0, "the server did not stop cleanly on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return np.concatenate([np.asarray(one["outputs"], np.float32)[None],
+                           np.asarray(rest["outputs"], np.float32)])
+
+
+def _finetune_model(dtype=torch.float32, state=None):
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+
+    model = build_model_from_cfg(cfg_from_yaml_file(FT_CONFIG)["model"], dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    return model.to(DEV)
+
+
+def phase_finetune(env: dict, tmp: str, seed: int) -> dict:
+    """Pretrain -> finetune -> export -> serve inside the port on the card."""
+    from gm3d_tpu_torch.cli import finetune as finetune_cli
+    from gm3d_tpu_torch.train import finetune as ft
+    from gm3d_tpu_torch.train.optim import build_finetune_optimizer
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    res = {"phase": "finetune", "batch": FT_BATCH, "points": FT_POINTS}
+    config = _finetune_config(tmp, _modelnet_dir(os.path.join(tmp, "modelnet40"), seed))
+
+    # ---- the pretrained weights: one short epoch of the port's GM3D pretrain CLI
+    pre_out = os.path.join(tmp, "pretrain")
+    _fresh_cli_logger()
+    pretrain_cli.main(["--config", GM3D_CONFIG, "--synthetic", "--synthetic_samples", "128",
+                       "--batch_size", "64", "--epochs", "1", "--output_dir", pre_out])
+    pretrained = os.path.join(pre_out, "ckpt")
+
+    # ---- the finetune CLI, both recipes, from that checkpoint
+    runs, launches_all = {}, {k: 0 for k in FT_LAUNCHES_PER_STEP}
+    steps = FT_EPOCHS * (FT_TRAIN // FT_BATCH)
+    val_batches = -(-FT_TEST // FT_BATCH)
+    for recipe in ("legacy", "hpm"):
+        out = os.path.join(tmp, f"finetune_{recipe}")
+        _fresh_cli_logger("gm3d.finetune")
+        pp.reset_launches()  # the finetune CLI's path: every launch count starts from 0 here
+        records = finetune_cli.main(["--config", config, "--epochs", str(FT_EPOCHS),
+                                     "--recipe", recipe, "--vote", "--pretrained", pretrained,
+                                     "--output_dir", out])
+        launches = pp.read_launches()
+        log = _read_log(out)
+        check(log == records, "log.txt differs from the records main() returned")
+        with open(os.path.join(out, "finetune.log")) as f:
+            text = f.read()
+        moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
+        check(moved is not None and int(moved.group(1)) > 100,
+              f"{recipe}: the transfer log line reports {moved and moved.group(1)} keys")
+        epochs = log[:-1]
+        check([r["epoch"] for r in epochs] == list(range(FT_EPOCHS)), log)
+        for r in epochs:
+            check(FT_RECORD_KEYS <= set(r) <= FT_RECORD_KEYS | {"val_vote_acc"}, sorted(r))
+            check(all(np.isfinite(r[k]) for k in r), r)
+        check(set(log[-1]) == {"vote_acc"} and np.isfinite(log[-1]["vote_acc"]), log[-1])
+        check(latest_step(os.path.join(out, "ckpt", "best")) is not None, "no ckpt/best")
+        votes = 1 + sum("val_vote_acc" in r for r in epochs)
+        evals = FT_EPOCHS * val_batches + votes * val_batches
+        want = {k: v * (steps + evals) for k, v in FT_LAUNCHES_PER_STEP.items()}
+        check(launches == want, f"{recipe} launches {launches}, expected {want}")
+        for k in launches_all:
+            launches_all[k] += launches[k]
+        runs[recipe] = {
+            "records": log, "launches": launches, "keys_transferred": int(moved.group(1)),
+            "clouds_per_sec_each_epoch": [(FT_TRAIN // FT_BATCH) * FT_BATCH / max(r["time"], 1e-9)
+                                          for r in epochs]}
+    res["cli_runs"] = runs
+    res["launches"] = launches_all
+
+    # ---- the launches of one train step, one eval batch and one vote batch
+    with open(os.path.join(tmp, "modelnet40", "modelnet40_test_8192pts_fps.dat"), "rb") as f:
+        data = pickle.load(f)[0][:FT_BATCH]
+    pts = torch.from_numpy(data).to(DEV)
+    labels = (torch.arange(FT_BATCH, device=DEV) % 40)
+    per = {}
+    model = _finetune_model()
+    optimizer = build_finetune_optimizer(model.named_parameters(), 1e-4)
+    state = create_train_state(model, optimizer)
+    step = ft.make_finetune_train_step(model, optimizer, FT_NPOINTS)
+    eval_step = ft.make_eval_step(model, FT_NPOINTS)
+    vote_step = ft.make_vote_eval_step(model, FT_NPOINTS)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for name, fn in (("train_step", lambda: step(state, pts, labels, gen)),
+                     ("eval_batch", lambda: eval_step(pts)),
+                     ("vote_batch", lambda: vote_step(pts, gen))):
+        pp.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per[name] = pp.read_launches()
+        check(per[name] == FT_LAUNCHES_PER_STEP,
+              f"{name} launches {per[name]}, expected {FT_LAUNCHES_PER_STEP}")
+    res["launches_per"] = per
+
+    # ---- FPS at the step's shape, index-equal to its plain version
+    got = fps_indices(pts, FT_POINT_ALL)
+    want_idx = fps_indices_torch(pts, FT_POINT_ALL)
+    torch.cuda.synchronize()
+    check(torch.equal(got.long(), want_idx.long()),
+          f"fps 8192->1200 differs from its plain version at {int((got != want_idx).sum())}")
+    fps_1200 = graph_ms(lambda: fps_indices(pts, FT_POINT_ALL))
+    fps_1024 = graph_ms(lambda: fps_indices(pts, FT_NPOINTS))
+
+    # ---- the bare step (median of 5 after 2 warm-up), fp32 and bf16; eval, vote
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _finetune_model(dtype)
+        optimizer = build_finetune_optimizer(model.named_parameters(), 1e-4)
+        state = create_train_state(model, optimizer)
+        step = ft.make_finetune_train_step(model, optimizer, FT_NPOINTS)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        event_ms, wall_ms, losses = [], [], []
+        for _ in range(7):
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            begin.record()
+            _, m = step(state, pts, labels, gen)
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(begin.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        check(all(np.isfinite(losses)), losses)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        ms = statistics.median(event_ms[2:])
+        timing[name] = {"step_ms_cuda_events": ms,
+                        "step_ms_wall": statistics.median(wall_ms[2:]),
+                        "clouds_per_s": FT_BATCH / statistics.median(wall_ms[2:]) * 1e3,
+                        "losses": losses}
+        if dtype == torch.float32:
+            eval_step = ft.make_eval_step(model, FT_NPOINTS)
+            vote_step = ft.make_vote_eval_step(model, FT_NPOINTS)
+            timing["eval_ms_per_batch"] = cuda_ms(lambda: eval_step(pts), runs=10, warmup=2)
+            timing["vote_ms_per_batch"] = cuda_ms(lambda: vote_step(pts, gen), runs=5, warmup=1)
+            timing["fps_8192_to_1200_graph_ms"] = fps_1200
+            timing["fps_8192_to_1024_graph_ms"] = fps_1024
+            timing["fps_share_of_step"] = fps_1200 / ms
+    # the CLI's train loader alone (4 worker threads, the default): ms a batch
+    from gm3d_tpu_torch.cli.common import make_cls_loaders
+    from gm3d_tpu_torch.config import cfg_from_yaml_file
+
+    loader = make_cls_loaders(cfg_from_yaml_file(config), finetune_cli.parse_args(
+        ["--config", config, "--output_dir", tmp]))[0]
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in loader)
+    timing["loader_ms_per_batch"] = (time.perf_counter() - t0) / batches * 1e3
+    for run in runs.values():
+        run["cli_over_step"] = [r / timing["fp32"]["clouds_per_s"]
+                                for r in run["clouds_per_sec_each_epoch"]]
+    res["timing"] = timing
+
+    # ---- export ckpt/best with 8192-point inputs, serve it, POST requests
+    best = os.path.join(tmp, "finetune_hpm", "ckpt", "best")
+    art = export_model.main(["--config", config, "--ckpt", best, "--input_points",
+                             str(FT_POINTS), "--export_batch", str(FT_BATCH),
+                             "--out", os.path.join(tmp, "finetuned.gm3dx"), "--device", "cuda"])
+    served = _serve_cli(art, data[:6], os.path.join(tmp, "serve.log"))
+    model = _finetune_model(state=restore_raw(best)["model"])
+    want_logits = ft.make_eval_step(model, FT_NPOINTS)(torch.from_numpy(data[:6])).cpu().numpy()
+    res["served_vs_eval_step_max_abs_err"] = _agree(served, want_logits, atol=TOL_SERVE)
+    res["served_ckpt_step"] = latest_step(best)
+    res["tol_serve"] = TOL_SERVE
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": launches_all}
+
 
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume", "probe", "step_options")
+          "resume", "probe", "step_options", "finetune")
 
 
 def main() -> None:
@@ -1655,7 +1934,8 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list out of: " + ",".join(PHASES))
     ap.add_argument("--seed", type=int, default=0,
-                    help="draws the features of the phase probe's SVC fit")
+                    help="draws the features of the phase probe's SVC fit and the "
+                         "clouds of the phase finetune")
     cli_args = ap.parse_args()
     phases = cli_args.phases.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1684,6 +1964,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         options = (phase_step_options(env, trained, tmp) if "step_options" in phases
                    else None)
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned = phase_finetune(env, tmp, cli_args.seed) if "finetune" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -1700,6 +1982,8 @@ def main() -> None:
         kern["launches_probe_background"] = probed["background"][kern["name"]]
         # accumulation, the separated optimizers, remat, bf16 and their CLI run
         kern["launches_step_options"] = options["launches"][kern["name"]]
+        # both finetune recipes' CLI runs: FPS and KNN only, as the JAX steps route it
+        kern["launches_finetune"] = tuned["launches"][kern["name"]]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

@@ -4,8 +4,7 @@ Port of ``gm3d_tpu/cli/common.py``: the same flags, config overrides and
 loaders. What differs: ``--device`` (the port takes an explicit device, and
 runs on the GPU unless asked for the CPU); ``setup_mesh`` is a device check,
 one device only; ``resolve_batch_floor`` is always 0 (the floor works around
-a TPU compiler bug). ``make_cls_loaders`` waits for the finetune CLI
-(``ROADMAP.md`` Queue 1 item 4).
+a TPU compiler bug).
 """
 
 from __future__ import annotations
@@ -130,6 +129,32 @@ def make_loaders(cfg, args):
     svm_train = _labelled(DataLoader(svm_tr, bs * 2, shuffle=False, drop_last=False))
     svm_test = _labelled(DataLoader(svm_te, bs * 2, shuffle=False, drop_last=False))
     return train_loader, svm_train, svm_test
+
+
+def make_cls_loaders(cfg, args):
+    """(train_loader, val_loader) of the finetune CLI, each yielding (points,
+    labels): on ``--synthetic``, labelled clouds in the config's ``cls_dim``
+    classes (train seed 1, validation seed 2, a quarter as many and at least
+    64); else the config's ``dataset.train`` and ``dataset.val``. The train
+    loader shuffles by ``(--seed, epoch)``; validation keeps its order and
+    its last partial batch."""
+    bs = cfg["total_bs"]
+    npoints = cfg.get("npoints", 1024)
+    if args.synthetic:
+        ncls = cfg["model"].get("cls_dim", 40)
+        train_ds = SyntheticClouds(args.synthetic_samples, npoints,
+                                   num_classes=ncls, seed=1, labelled=True)
+        val_ds = SyntheticClouds(max(args.synthetic_samples // 4, 64), npoints,
+                                 num_classes=ncls, seed=2, labelled=True)
+    else:
+        train_ds = build_dataset_from_cfg(cfg["dataset"]["train"])
+        val_ds = build_dataset_from_cfg(cfg["dataset"]["val"])
+    workers = getattr(args, "num_workers", 0)
+    return (
+        _labelled(DataLoader(train_ds, bs, seed=args.seed, num_workers=workers)),
+        _labelled(DataLoader(val_ds, bs, shuffle=False, drop_last=False,
+                             num_workers=workers)),
+    )
 
 
 class _points_only:

@@ -1,17 +1,26 @@
 """Export a model to a self-contained serving artifact (``.gm3dx``).
 
-  # classifier (finetune config + checkpoint)
+  # classifier (finetune config + the finetune CLI's best checkpoint)
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/finetune_modelnet.yaml \
-      --ckpt finetuned.pth --out model.gm3dx --export_batch 128
+      --ckpt experiments/ft/ckpt/best --out model.gm3dx --export_batch 128
 
   # frozen featurizer (pretrain config + checkpoint, SVM/kNN feature contract)
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/config.yaml \
       --ckpt pretrained.pth --mode features --out feats.gm3dx
 
-``--ckpt`` takes a torch ``.pth`` state dict under the reference's parameter
-names (what the JAX package's ``export_torch_checkpoint`` in
-``gm3d_tpu/ckpt/torch_import.py`` writes and
-:func:`gm3d_tpu_torch.ckpt.state_dict_from_flax` returns). A bad path raises;
+``--ckpt`` takes either of two forms:
+
+  - a checkpoint ROOT written by the port's CLIs (``ckpt/checkpoint.py``):
+    the rolling ``.../ckpt``, whose latest step is read, or a pinned
+    subdirectory such as the finetune CLI's ``.../ckpt/best``. Its ``model``
+    is loaded and its step goes into the manifest's ``ckpt_step``, as the JAX
+    export does;
+  - a torch ``.pth`` state dict under the reference's parameter names (what
+    the JAX package's ``export_torch_checkpoint`` in
+    ``gm3d_tpu/ckpt/torch_import.py`` writes and
+    :func:`gm3d_tpu_torch.ckpt.state_dict_from_flax` returns).
+
+Either loads with ``strict=True``. A bad path raises ``FileNotFoundError``;
 without ``--ckpt`` the export warns and carries weights drawn from ``--seed``
 (smoke/test use only). Serve the artifact with ``gm3d_tpu_torch.cli.serve``.
 """
@@ -24,6 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from gm3d_tpu_torch.ckpt import load_torch_file
+from gm3d_tpu_torch.ckpt.checkpoint import restore_raw
 from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS
@@ -35,7 +45,8 @@ from gm3d_tpu_torch.utils.device import dtype_name, resolve_device
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = base_parser("export a serving artifact")
     p.add_argument("--ckpt", default=None,
-                   help="torch .pth state dict in the reference's names")
+                   help="a checkpoint root of the port's CLIs (.../ckpt, .../ckpt/best) "
+                        "or a torch .pth state dict in the reference's names")
     p.add_argument("--out", required=True, help="output .gm3dx path")
     p.add_argument("--mode", choices=["classifier", "features"], default="classifier")
     p.add_argument("--model_family", choices=["gm3d", "pointmae"], default="gm3d",
@@ -85,7 +96,15 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
 
     model_name, model_cfg = _model_cfg(args, cfg)
     model = build_model_from_cfg(model_cfg, dtype=dtype)
-    if args.ckpt:
+    step = -1
+    if args.ckpt and os.path.isdir(args.ckpt):
+        raw = restore_raw(args.ckpt)
+        if raw is None:
+            raise FileNotFoundError(f"no checkpoint at {args.ckpt}")
+        model.load_state_dict(raw["model"], strict=True)
+        step = int(raw["step"])
+        logger.info(f"restored ckpt step {step} from {args.ckpt}")
+    elif args.ckpt:
         if not os.path.isfile(args.ckpt):
             raise FileNotFoundError(f"no checkpoint at {args.ckpt}")
         model.load_state_dict(load_torch_file(args.ckpt), strict=True)
@@ -99,7 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         "model": model_name,
         "model_cfg": model_cfg,
         "npoints": npoints,
-        "ckpt_step": -1,
+        "ckpt_step": step,
         "compute_dtype": dtype_name(dtype),
         "quantization": "none",
     }

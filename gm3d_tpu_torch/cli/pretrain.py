@@ -78,7 +78,7 @@ from gm3d_tpu_torch.train.optim import (
     build_gm3d_separated_optimizer,
     build_gm3d_shared_optimizer,
     build_legacy_adamw,
-    scheduled_param_groups,
+    set_scheduled_lr,
 )
 from gm3d_tpu_torch.train.pretrain import (
     METRIC_KEYS,
@@ -563,8 +563,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             for pts in prefetcher:
                 # optax evaluates the schedule at the optimizer's count of UPDATES
                 # before the update (under accumulation, once a window)
-                for group in scheduled_param_groups(optimizer):
-                    group["lr"] = sched(state.step // args.accum_iter)
+                set_scheduled_lr(optimizer, sched(state.step // args.accum_iter))
                 state, metrics = run_step(state, pts, generator, scalars)
                 dm.push(metrics)
                 if args.save_steps and state.step - last_saved_step >= args.save_steps:

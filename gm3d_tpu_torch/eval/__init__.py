@@ -1,1 +1,2 @@
-"""Evaluation: the linear-SVM probe and the linear C-SVC it fits."""
+"""Evaluation: the linear-SVM probe, the linear C-SVC it fits, and the
+classifier's accuracy."""

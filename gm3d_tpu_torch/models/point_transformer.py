@@ -76,8 +76,10 @@ class PointTransformer(nn.Module):
         trunc_normal_(self.cls_token, generator)
         trunc_normal_(self.cls_pos, generator)
 
-    def features(self, pts: torch.Tensor) -> torch.Tensor:
-        """Token sequence [cls, groups...] after the encoder stack."""
+    def features(self, pts: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """Token sequence [cls, groups...] after the encoder stack;
+        ``generator`` draws the blocks' stochastic depth in train mode."""
         grouped = group_points(pts, self.num_group, self.group_size)
         tokens = self.encoder(grouped.neighborhood)
         batch, dt = tokens.shape[0], self.compute_dtype
@@ -85,12 +87,16 @@ class PointTransformer(nn.Module):
         cls_pos = self.cls_pos.to(dt).expand(batch, -1, -1)
         pos = torch.cat([cls_pos, self.pos_embed(grouped.center)], dim=1)
         x = torch.cat([cls_tok, tokens], dim=1)
-        return self.norm_p(self.blocks(x, pos))
+        return self.norm_p(self.blocks(x, pos, generator=generator))
 
-    def forward(self, pts: torch.Tensor) -> torch.Tensor:
-        x = self.features(pts)
+    def forward(self, pts: torch.Tensor, dropout_masks=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits. In train mode ``dropout_masks`` (the head's two keep masks,
+        ``ClsHead.forward``) replace the head's dropout draws, and
+        ``generator`` draws stochastic depth."""
+        x = self.features(pts, generator)
         concat_f = torch.cat([x[:, 0], x[:, 1:].max(dim=1).values], dim=-1)
-        return self.cls_head_finetune(concat_f)
+        return self.cls_head_finetune(concat_f, dropout_masks)
 
 
 class Classifier(nn.Module):

@@ -4,10 +4,12 @@ Port of ``gm3d_tpu/train/optim.py::build_adamw`` and
 ``::build_gm3d_shared_optimizer`` over ``torch.optim.AdamW`` with two
 parameter groups (decay on parameters with ``ndim > 1``, none on biases and
 norms), ``::build_legacy_adamw``, the teacher pretrain's, and
-``::build_gm3d_separated_optimizer`` (``--no-shared_opt``, ``SeparatedAdamW``).
-Gradient accumulation (``accum_steps > 1``) wraps any of them in
-``MultiSteps``, the counterpart of ``optax.MultiSteps``. The layer-decay
-constructors of that file are not ported yet.
+``::build_gm3d_separated_optimizer`` (``--no-shared_opt``, ``SeparatedAdamW``)
+and the finetune optimizer, ``::layerwise_lr_decay_scales`` with
+``::build_finetune_optimizer``: one parameter group a layer-decay scale, each
+carrying its ``lr_scale`` (``set_scheduled_lr`` multiplies the schedule's rate
+by it). Gradient accumulation (``accum_steps > 1``) wraps any of them in
+``MultiSteps``, the counterpart of ``optax.MultiSteps``.
 
 Two places where optax and torch differ, and what is done about them:
 
@@ -24,7 +26,8 @@ Two places where optax and torch differ, and what is done about them:
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence, Tuple
+import re
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -170,6 +173,14 @@ def scheduled_param_groups(optimizer) -> list:
     return getattr(optimizer, "scheduled_param_groups", optimizer.param_groups)
 
 
+def set_scheduled_lr(optimizer, lr: float) -> None:
+    """Set the schedule's rate ``lr`` on the scheduled groups, each times its
+    ``lr_scale`` (the finetune optimizer's layer decay; 1 where a group has
+    none). One rate for every group would undo the layer decay."""
+    for group in scheduled_param_groups(optimizer):
+        group["lr"] = lr * group.get("lr_scale", 1.0)
+
+
 def build_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
                 betas=(0.9, 0.95), grad_clip: Optional[float] = None,
                 accum_steps: int = 1):
@@ -302,3 +313,64 @@ def build_gm3d_separated_optimizer(student: nn.Module, learning_rate: float,
     lp_lr = learning_rate if loss_pred_learning_rate is None else loss_pred_learning_rate
     return accumulate(SeparatedAdamW(half("recon", learning_rate), half("loss_pred", lp_lr)),
                       accum_steps)
+
+
+def layerwise_lr_decay_scales(names: Iterable[str], decay: float = 0.75,
+                              num_layers: int = 12) -> Dict[str, float]:
+    """The learning-rate scale of each parameter name of the flat
+    ``PointTransformer`` (``gm3d_tpu/train/optim.py::layerwise_lr_decay_scales``,
+    reference ``util/lr_decay.py:14-61``), by the reference's EFFECTIVE layer
+    ids: ``cls_token`` is layer 0 (``decay ** num_layers``),
+    ``blocks.blocks.{i}.*`` layer ``min(i + 1, num_layers)``, and everything
+    else (patch embed, ``pos_embed``, ``cls_pos``, ``norm_p``, the head)
+    layer ``num_layers``, scale 1. ``num_layers`` is 12 whatever the model's
+    depth, as the reference hard-codes it.
+
+    Hierarchical Point-M2AE names (``stage{s}`` and ``block{i}``) raise: that
+    family is not ported yet (``ROADMAP.md`` Queue 1 item 3)."""
+    names = list(names)
+    if any(re.search(r"stage\d+.*block\d+", n) for n in names):
+        raise NotImplementedError(
+            "layer decay over a hierarchical (Point-M2AE) model is not ported yet "
+            "(ROADMAP.md Queue 1 item 3)")
+
+    def layer_id(name: str) -> int:
+        if name == "cls_token":
+            return 0
+        m = re.match(r"blocks\.blocks\.(\d+)\.", name)
+        if m:
+            return min(int(m.group(1)) + 1, num_layers)
+        return num_layers
+
+    return {n: decay ** (num_layers - layer_id(n)) for n in names}
+
+
+def build_finetune_optimizer(named_params, learning_rate: float, weight_decay: float = 0.05,
+                             layer_decay: Optional[float] = 0.75,
+                             grad_clip: Optional[float] = None, betas=(0.9, 0.999),
+                             accum_steps: int = 1):
+    """The HPM finetune optimizer (``gm3d_tpu/train/optim.py::
+    build_finetune_optimizer``, reference ``main_finetune.py:359-366``):
+    AdamW with torch's default betas, eps 1e-8, decay on >=2-d parameters
+    only, clip ``grad_clip`` (none by default), over the layer-decay scales of
+    ``layerwise_lr_decay_scales`` (``layer_decay`` None or 1: one scale, 1).
+
+    One parameter group a distinct scale and decay class, each carrying its
+    ``lr_scale``; the caller sets ``lr`` to the schedule's rate times it
+    (``set_scheduled_lr``). torch's per-group ``lr`` scales both the Adam
+    step and the decoupled decay, as the JAX chain scales the combined
+    update, so the decay is not scaled again. ``accum_steps > 1`` accumulates
+    the MEAN in ``MultiSteps``, outermost, as ``optax.MultiSteps`` is."""
+    named = [(n, p) for n, p in named_params if p.requires_grad]
+    if layer_decay is not None and layer_decay != 1.0:
+        scales = layerwise_lr_decay_scales([n for n, _ in named], layer_decay)
+    else:
+        scales = {n: 1.0 for n, _ in named}
+    groups = []
+    for scale in sorted(set(scales.values())):
+        for group in _decay_groups([(n, p) for n, p in named if scales[n] == scale],
+                                   weight_decay):
+            if group["params"]:
+                groups.append({**group, "lr": learning_rate * scale, "lr_scale": scale})
+    return accumulate(ClippedAdamW(groups, grad_clip=grad_clip, lr=learning_rate,
+                                   betas=tuple(betas), eps=1e-8), accum_steps)

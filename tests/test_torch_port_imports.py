@@ -195,6 +195,36 @@ def test_train_entry_points_default_to_cuda_and_say_so():
         profile_pretrain.main(["--device", "cpu"])
 
 
+def test_finetune_entry_points_default_to_cuda_and_say_so(tmp_path):
+    """The finetune CLI and the three step constructors of ``train/finetune.py``
+    raise without a GPU unless given ``--device cpu`` / ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli import finetune as finetune_cli
+    from gm3d_tpu_torch.models import PointTransformer
+    from gm3d_tpu_torch.train import finetune
+    from gm3d_tpu_torch.train.optim import build_finetune_optimizer
+
+    model = PointTransformer(trans_dim=16, depth=1, num_heads=2, cls_dim=3, group_size=4,
+                             num_group=4, encoder_dims=16)
+    optimizer = build_finetune_optimizer(model.named_parameters(), 1e-3)
+    flags = ["--config", "configs/pointmae/finetune_modelnet.yaml", "--synthetic",
+             "--output_dir", str(tmp_path)]
+    for entry in (lambda: finetune_cli.main(flags),
+                  lambda: finetune.make_finetune_train_step(model, optimizer),
+                  lambda: finetune.make_eval_step(model),
+                  lambda: finetune.make_vote_eval_step(model)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert not (tmp_path / "log.txt").exists()
+    # asked for, the CPU is taken
+    finetune.make_finetune_train_step(model, optimizer, device="cpu")
+    logits = finetune.make_eval_step(model, 32, device="cpu")(torch.randn(2, 32, 3))
+    assert logits.shape == (2, 3)
+    vote = finetune.make_vote_eval_step(model, 1024, times=2, device="cpu")
+    assert vote(torch.randn(2, 1024, 3), torch.Generator()).shape == (2, 3)
+
+
 @pytest.mark.parametrize("wrapper", ["patch_embed", "attention_fwd", "attention_bwd"])
 def test_a_cuda_tensor_goes_to_the_kernel_or_raises(wrapper, monkeypatch):
     """On a CUDA tensor a wrapper must reach for the kernel library (here:
