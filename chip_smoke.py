@@ -77,7 +77,8 @@ Phases, each printing one JSON line when it ends:
   finetune    pretrain -> finetune -> export -> serve inside the port: a
               ModelNet-layout directory of synthetic 8,192-point clouds in 40
               classes (from ``--seed``) read by the ModelNet reader; one epoch
-              of the GM3D pretrain CLI; the finetune CLI
+              of the GM3D pretrain CLI (its checkpoint serves the phases
+              ``segmentation`` and ``fewshot`` too); the finetune CLI
               (``configs/pointmae/finetune_modelnet.yaml``, full width, B 32)
               from that checkpoint for two epochs with ``--vote``, once a
               recipe (``legacy``, ``hpm``): its records, more than 100 keys
@@ -90,6 +91,29 @@ Phases, each printing one JSON line when it ends:
               exported with 8,192-point inputs, served by
               ``gm3d_tpu_torch.cli.serve`` in a process of its own, its logits
               within ``TOL_SERVE`` of the eval step's
+  segmentation  part segmentation at ``seg_shapenetpart.yaml``'s full width
+              (B 16 x 2,048 points, 128 groups): FPS 2,048 -> 128 and the
+              grouping's KNN (k 32) on the step's inputs index-equal to their
+              plain versions (KNN distances within rtol 1e-6); the KNN kernel
+              at the feature propagation's shape (2,048 queries on the 128 FPS centers, k 3,
+              with distances) index-equal to its plain version, distances
+              within rtol 1e-6, the propagated features' gap at the points
+              that are centers and elsewhere, its CUDA-graph time beside
+              ``cdist`` + ``topk``; the bare seg step (launches FPS 1, KNN 2;
+              ms and clouds per second, fp32 and bf16; an eval batch's ms);
+              the seg CLI for two epochs from the GM3D pretrain checkpoint
+              (records with ``instance_miou`` and ``class_miou``, more than
+              100 keys transferred, ``ckpt/best``, launches); ``ckpt/best``
+              exported with ``--mode segmentation`` and served by
+              ``gm3d_tpu_torch.cli.serve`` in a process of its own: part labels
+              equal to the eval step's category-restricted arg-max, logits
+              within ``TOL_SERVE``; another ``--input_points`` refused
+  fewshot     the few-shot CLI at ``fewshot.yaml``'s full width, 5-way 10-shot,
+              two folds of two epochs on synthetic episodes from the same
+              pretrain checkpoint: per-fold accuracies, mean and std in
+              ``log.txt``, seconds a fold, launches (FPS 1, KNN 1 a step or
+              an evaluation batch), the finetune step's ms at the episode
+              batch
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -100,7 +124,8 @@ printed. The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases env,build,train`` (development only) runs some of the list and
 prints no result line. ``--seed`` (default 0) draws the phase ``probe``'s
-features and the phase ``finetune``'s clouds.
+features, the phase ``finetune``'s clouds and the phases ``segmentation``'s
+and ``fewshot``'s clouds and weights.
 """
 
 from __future__ import annotations
@@ -1724,10 +1749,10 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
+def _serve_process(art: str, log_path: str, requests):
     """``python -m gm3d_tpu_torch.cli.serve`` in a process of its own: wait for
-    /health, POST the clouds (one JSON request of one cloud, then the rest as
-    one .npy request), stop it with SIGTERM. Returns the served logits."""
+    /health, call ``requests(base_url)``, stop the server with SIGTERM (it must
+    exit 0). Returns what ``requests`` returns."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     with open(log_path, "w") as log:
@@ -1744,6 +1769,21 @@ def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
                     break
             except (urllib.error.URLError, ConnectionError):
                 time.sleep(0.2)
+        answer = requests(base)
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=60) == 0, "the server did not stop cleanly on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return answer
+
+
+def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
+    """POST the clouds to the served classifier (one JSON request of one
+    cloud, then the rest as one .npy request). Returns the served logits."""
+
+    def requests(base):
         status, one = _http(base + "/predict",
                             json.dumps({"points": clouds[0].tolist()}).encode())
         check(status == 200, status)
@@ -1751,14 +1791,10 @@ def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
         np.save(buf, clouds[1:])
         status, rest = _http(base + "/predict", buf.getvalue(), "application/octet-stream")
         check(status == 200, status)
-        proc.send_signal(signal.SIGTERM)
-        check(proc.wait(timeout=60) == 0, "the server did not stop cleanly on SIGTERM")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    return np.concatenate([np.asarray(one["outputs"], np.float32)[None],
-                           np.asarray(rest["outputs"], np.float32)])
+        return np.concatenate([np.asarray(one["outputs"], np.float32)[None],
+                               np.asarray(rest["outputs"], np.float32)])
+
+    return _serve_process(art, log_path, requests)
 
 
 def _finetune_model(dtype=torch.float32, state=None):
@@ -1771,8 +1807,39 @@ def _finetune_model(dtype=torch.float32, state=None):
     return model.to(DEV)
 
 
-def phase_finetune(env: dict, tmp: str, seed: int) -> dict:
-    """Pretrain -> finetune -> export -> serve inside the port on the card."""
+def _step_ms(step, runs: int = 5, warmup: int = 2) -> tuple[float, float, list]:
+    """(median CUDA-event ms, median wall ms, the losses) of ``runs`` calls of
+    ``step()`` (which returns the step's metrics) after ``warmup``; every
+    loss must be finite."""
+    event_ms, wall_ms, losses = [], [], []
+    for _ in range(runs + warmup):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        begin.record()
+        m = step()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(begin.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), losses)
+    return statistics.median(event_ms[warmup:]), statistics.median(wall_ms[warmup:]), losses
+
+
+def _gm3d_pretrain_ckpt(tmp: str, samples: int, batch: int) -> str:
+    """One short epoch of the port's GM3D pretrain CLI; its checkpoint root."""
+    pre_out = os.path.join(tmp, "pretrain")
+    _fresh_cli_logger()
+    pretrain_cli.main(["--config", GM3D_CONFIG, "--synthetic", "--synthetic_samples",
+                       str(samples), "--batch_size", str(batch), "--epochs", "1",
+                       "--output_dir", pre_out])
+    return os.path.join(pre_out, "ckpt")
+
+
+def phase_finetune(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
+    """Pretrain -> finetune -> export -> serve inside the port on the card;
+    ``pretrained`` is a GM3D pretrain checkpoint root (``_gm3d_pretrain_ckpt``)."""
     from gm3d_tpu_torch.cli import finetune as finetune_cli
     from gm3d_tpu_torch.train import finetune as ft
     from gm3d_tpu_torch.train.optim import build_finetune_optimizer
@@ -1780,13 +1847,6 @@ def phase_finetune(env: dict, tmp: str, seed: int) -> dict:
 
     res = {"phase": "finetune", "batch": FT_BATCH, "points": FT_POINTS}
     config = _finetune_config(tmp, _modelnet_dir(os.path.join(tmp, "modelnet40"), seed))
-
-    # ---- the pretrained weights: one short epoch of the port's GM3D pretrain CLI
-    pre_out = os.path.join(tmp, "pretrain")
-    _fresh_cli_logger()
-    pretrain_cli.main(["--config", GM3D_CONFIG, "--synthetic", "--synthetic_samples", "128",
-                       "--batch_size", "64", "--epochs", "1", "--output_dir", pre_out])
-    pretrained = os.path.join(pre_out, "ckpt")
 
     # ---- the finetune CLI, both recipes, from that checkpoint
     runs, launches_all = {}, {k: 0 for k in FT_LAUNCHES_PER_STEP}
@@ -1868,25 +1928,10 @@ def phase_finetune(env: dict, tmp: str, seed: int) -> dict:
         state = create_train_state(model, optimizer)
         step = ft.make_finetune_train_step(model, optimizer, FT_NPOINTS)
         gen = torch.Generator(device=DEV).manual_seed(seed)
-        event_ms, wall_ms, losses = [], [], []
-        for _ in range(7):
-            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            begin.record()
-            _, m = step(state, pts, labels, gen)
-            end.record()
-            torch.cuda.synchronize()
-            wall_ms.append((time.perf_counter() - t0) * 1e3)
-            event_ms.append(begin.elapsed_time(end))
-            losses.append(float(m["loss"]))
-        check(all(np.isfinite(losses)), losses)
         name = "fp32" if dtype == torch.float32 else "bf16"
-        ms = statistics.median(event_ms[2:])
-        timing[name] = {"step_ms_cuda_events": ms,
-                        "step_ms_wall": statistics.median(wall_ms[2:]),
-                        "clouds_per_s": FT_BATCH / statistics.median(wall_ms[2:]) * 1e3,
-                        "losses": losses}
+        ms, wall, losses = _step_ms(lambda: step(state, pts, labels, gen)[1])
+        timing[name] = {"step_ms_cuda_events": ms, "step_ms_wall": wall,
+                        "clouds_per_s": FT_BATCH / wall * 1e3, "losses": losses}
         if dtype == torch.float32:
             eval_step = ft.make_eval_step(model, FT_NPOINTS)
             vote_step = ft.make_vote_eval_step(model, FT_NPOINTS)
@@ -1925,8 +1970,305 @@ def phase_finetune(env: dict, tmp: str, seed: int) -> dict:
     return {"launches": launches_all}
 
 
+# the segmentation path: configs/pointmae/seg_shapenetpart.yaml at full width (384
+# wide, 12 blocks, taps after blocks 3, 7 and 11, 128 groups of 32), B 16 clouds
+# of 2,048 points, 50 parts of 16 categories
+SEG_CONFIG = os.path.join(ROOT, "configs", "pointmae", "seg_shapenetpart.yaml")
+SEG_BATCH, SEG_POINTS, SEG_GROUPS, SEG_EPOCHS, SEG_SAMPLES = 16, 2048, 128, 2, 64
+# launches the JAX seg code implies: one grouping (FPS 2048 -> 128, KNN k 32)
+# and the feature propagation's KNN (k 3, every point on the 128 centers) a
+# train step or an eval batch; no FPS to point_all (the input is the model's
+# point count), no fused attention or patch embed
+# (gm3d_tpu/train/segmentation.py:71-73)
+SEG_LAUNCHES_PER_STEP = {"fps": 1, "knn": 2, "patch_embed": 0, "attention_fwd": 0,
+                         "attention_bwd": 0}
+SEG_RECORD_KEYS = {"loss", "acc", "epoch", "time", "instance_miou", "class_miou"}
+# the few-shot path: configs/pointmae/fewshot.yaml at full width (PointTransformer,
+# 384 wide, 12 blocks, 64 groups of 32, 1,024 points, B 32), 5-way 10-shot
+FS_CONFIG = os.path.join(ROOT, "configs", "pointmae", "fewshot.yaml")
+FS_WAY, FS_SHOT, FS_FOLDS, FS_EPOCHS, FS_BATCH = 5, 10, 2, 2, 32
+# the 1,024-point clouds are never larger than point_all: one grouping a step
+# or an eval batch (gm3d_tpu/train/finetune.py:75-76, :154)
+FS_LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
+                        "attention_bwd": 0}
+
+
+def _seg_serve_cli(art: str, clouds: np.ndarray, cls: np.ndarray, log_path: str) -> dict:
+    """POST to the served segmentation artifact: one JSON request with the
+    clouds, their categories and ``return_logits``, one without a category
+    (refused with 400). Returns the first answer."""
+
+    def requests(base):
+        body = {"points": clouds.tolist(), "cls_label": cls.tolist(), "return_logits": True}
+        status, answer = _http(base + "/predict", json.dumps(body).encode())
+        check(status == 200, status)
+        try:
+            _http(base + "/predict", json.dumps({"points": clouds.tolist()}).encode())
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"a request without cls_label answered {e.code}")
+        else:
+            raise AssertionError("a request without cls_label was served")
+        return answer
+
+    return _serve_process(art, log_path, requests)
+
+
+def phase_segmentation(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
+    """Pretrain -> part segmentation -> export -> serve inside the port."""
+    from gm3d_tpu_torch.cli import finetune_seg as seg_cli
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+    from gm3d_tpu_torch.data.datasets import SEG_CLASSES
+    from gm3d_tpu_torch.models.segmentation import propagate_features
+    from gm3d_tpu_torch.train import segmentation as seg
+    from gm3d_tpu_torch.train.optim import build_finetune_optimizer
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    res = {"phase": "segmentation", "batch": SEG_BATCH, "points": SEG_POINTS}
+    cls_names = sorted(SEG_CLASSES)
+    data = seg_cli.SyntheticParts(SEG_BATCH, SEG_POINTS, seed=seed + 7)
+    items = [data[i][2] for i in range(SEG_BATCH)]
+    pts = torch.from_numpy(np.stack([p for p, _, _ in items])).to(DEV)
+    cls = torch.tensor([c for _, c, _ in items], device=DEV)
+    target = torch.from_numpy(np.stack([t for _, _, t in items])).to(DEV)
+
+    # ---- (a) the step's kernels at its shapes against their plain versions:
+    # FPS 2,048 -> 128 centers, the grouping's KNN (k 32 of 2,048 points
+    # around each center) and the propagation's
+    center_idx = fps_indices(pts, SEG_GROUPS)
+    want_idx = fps_indices_torch(pts, SEG_GROUPS)
+    torch.cuda.synchronize()
+    check(torch.equal(center_idx.long(), want_idx.long()) and center_idx.dtype == torch.int32,
+          f"fps at the seg shape differs from its plain version at "
+          f"{int((center_idx.long() != want_idx.long()).sum())} of {center_idx.numel()} indices")
+    centers = fps_gather(pts, center_idx)
+    model_cfg = cfg_from_yaml_file(SEG_CONFIG)["model"]
+    group_size = model_cfg["group_size"]
+    grouped = knn_indices(pts, centers, group_size)
+    gd, gi = knn_indices(pts, centers, group_size, return_dist=True)
+    wd, wi = knn_indices_torch(pts, centers, group_size, return_dist=True)
+    torch.cuda.synchronize()
+    check(torch.equal(grouped.long(), wi.long()) and torch.equal(gi, wi),
+          f"knn at the grouping's shape differs from its plain version at "
+          f"{int((grouped.long() != wi.long()).sum())} of {wi.numel()} indices")
+    torch.testing.assert_close(gd, wd, rtol=1e-6, atol=0.0)
+    res["fps_grouping"] = {"shape": [SEG_BATCH, SEG_POINTS, SEG_GROUPS], "indices_equal": True,
+                           "ms": cuda_ms(lambda: fps_indices(pts, SEG_GROUPS))}
+    res["knn_grouping"] = {"shape": [SEG_BATCH, SEG_POINTS, SEG_GROUPS, group_size],
+                           "indices_equal": True,
+                           "dist_max_abs_err": float((gd - wd).abs().max()),
+                           "dist_tol": {"rtol": 1e-6, "atol": 0.0},
+                           "ms": cuda_ms(lambda: knn_indices(pts, centers, group_size))}
+    # the propagation: every point on the 128 centers, k 3, with distances
+    # (centers are points of the cloud)
+    gd, gi = knn_indices(centers, pts, 3, return_dist=True)
+    wd, wi = knn_indices_torch(centers, pts, 3, return_dist=True)
+    torch.cuda.synchronize()
+    check(torch.equal(gi, wi), f"knn at the propagation's shape differs from its plain "
+                               f"version at {int((gi != wi).sum())} of {gi.numel()} indices")
+    torch.testing.assert_close(gd, wd, rtol=1e-6, atol=0.0)
+    on_center = torch.zeros(SEG_BATCH, SEG_POINTS, dtype=torch.bool, device=DEV)
+    on_center.scatter_(1, center_idx.long(), True)
+    feats = torch.randn(SEG_BATCH, SEG_GROUPS, 3 * 384, device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(seed))
+    prop = propagate_features(pts, centers, feats)  # through the kernel
+    prop_plain = propagate_features(pts.cpu(), centers.cpu(), feats.cpu()).to(DEV)
+    gap = (prop - prop_plain).abs().amax(dim=-1)
+    knn_launch = {"shape": [SEG_BATCH, SEG_GROUPS, SEG_POINTS, 3],
+                  "indices_equal": True,
+                  "dist_max_abs_err": float((gd - wd).abs().max()),
+                  "dist_tol": {"rtol": 1e-6, "atol": 0.0},
+                  "self_distance_max_abs": float(gd[..., 0][on_center].abs().max()),
+                  "propagated_gap_at_centers": float(gap[on_center].max()),
+                  "propagated_gap_elsewhere": float(gap[~on_center].max()),
+                  "graph_ms": graph_ms(lambda: knn_indices(centers, pts, 3, return_dist=True)),
+                  "ms": cuda_ms(lambda: knn_indices(centers, pts, 3, return_dist=True)),
+                  "plain_ms": cuda_ms(lambda: knn_indices_torch(centers, pts, 3,
+                                                                return_dist=True),
+                                      runs=10, warmup=1)}
+    check(knn_launch["propagated_gap_at_centers"] <= 1e-5
+          and knn_launch["propagated_gap_elsewhere"] <= 1e-5, knn_launch)
+
+    def knn_library():
+        return torch.topk(torch.cdist(pts, centers), 3, dim=-1, largest=False, sorted=True)
+
+    knn_launch["library_ms"] = cuda_ms(knn_library)
+    knn_launch["library_graph_ms"] = graph_ms(knn_library)
+    b, n, g, k = SEG_BATCH, SEG_GROUPS, SEG_POINTS, 3
+    knn_launch["bound_ms"], knn_launch["bound_by"] = bound(
+        b * n * 12 + b * g * 12 + b * g * k * 8, 9.0 * b * g * n + 5.0 * b * n)
+    res["knn_propagation"] = knn_launch
+
+    # ---- (b) the bare step and an eval batch: launches, ms, clouds per second
+    def seg_model(dtype=torch.float32, state=None):
+        model = build_model_from_cfg(model_cfg, dtype=dtype)
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        if state is not None:
+            model.load_state_dict(state, strict=True)
+        return model.to(DEV)
+
+    per, timing = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        model = seg_model(dtype)
+        optimizer = build_finetune_optimizer(model.named_parameters(), 1e-4, layer_decay=None,
+                                             grad_clip=10.0)
+        state = create_train_state(model, optimizer)
+        step = seg.make_seg_train_step(model, optimizer)
+        eval_step = seg.make_seg_eval_step(model)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        if dtype == torch.float32:
+            for what, fn in (("train_step", lambda: step(state, pts, cls, target, gen)),
+                             ("eval_batch", lambda: eval_step(pts, cls))):
+                pp.reset_launches()
+                fn()
+                torch.cuda.synchronize()
+                per[what] = pp.read_launches()
+                check(per[what] == SEG_LAUNCHES_PER_STEP,
+                      f"{what} launches {per[what]}, expected {SEG_LAUNCHES_PER_STEP}")
+        ms, wall, losses = _step_ms(lambda: step(state, pts, cls, target, gen)[1])
+        timing[name] = {"step_ms_cuda_events": ms, "step_ms_wall": wall,
+                        "clouds_per_s": SEG_BATCH / wall * 1e3, "losses": losses}
+        timing[name]["eval_ms_per_batch"] = cuda_ms(lambda: eval_step(pts, cls), runs=10,
+                                                    warmup=2)
+    res["launches_per"] = per
+    res["timing"] = timing
+    del model, optimizer, state
+
+    # ---- (c) the seg CLI from the pretrain checkpoint, 2 epochs
+    out = os.path.join(tmp, "seg")
+    _fresh_cli_logger("gm3d.seg")
+    pp.reset_launches()  # the seg CLI's path: every launch count starts from 0 here
+    t0 = time.perf_counter()
+    records = seg_cli.main(["--config", SEG_CONFIG, "--synthetic", "--synthetic_samples",
+                            str(SEG_SAMPLES), "--epochs", str(SEG_EPOCHS),
+                            "--pretrained", pretrained, "--output_dir", out])
+    cli_wall = time.perf_counter() - t0
+    launches = pp.read_launches()
+    log = _read_log(out)
+    check(log == records, "log.txt differs from the records main() returned")
+    with open(os.path.join(out, "seg.log")) as f:
+        text = f.read()
+    moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
+    check(moved is not None and int(moved.group(1)) > 100,
+          f"the transfer log line reports {moved and moved.group(1)} keys")
+    check([r["epoch"] for r in log] == list(range(SEG_EPOCHS)), log)
+    for r in log:
+        check(set(r) == SEG_RECORD_KEYS and all(np.isfinite(r[k]) for k in r), r)
+    best = os.path.join(out, "ckpt", "best")
+    check(latest_step(best) is not None, "no ckpt/best")
+    check(load_best_metrics(os.path.join(out, "ckpt"))["instance_miou"] * 100
+          == max(r["instance_miou"] for r in log), "best_metrics.json")
+    steps = SEG_EPOCHS * (SEG_SAMPLES // SEG_BATCH)
+    val_batches = -(-max(SEG_SAMPLES // 4, 32) // SEG_BATCH)
+    want = {k: v * (steps + SEG_EPOCHS * val_batches) for k, v in SEG_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"seg CLI launches {launches}, expected {want}")
+    res["cli"] = {"records": log, "launches": launches, "keys_transferred": int(moved.group(1)),
+                  "wall_s": cli_wall,
+                  "clouds_per_sec_each_epoch": [(SEG_SAMPLES // SEG_BATCH) * SEG_BATCH
+                                                / max(r["time"], 1e-9) for r in log]}
+
+    # ---- (d) ckpt/best exported for segmentation and served in its own process
+    art = export_model.main(["--config", SEG_CONFIG, "--ckpt", best, "--mode", "segmentation",
+                             "--export_batch", "4", "--out", os.path.join(tmp, "seg.gm3dx"),
+                             "--device", "cuda"])
+    model = seg_model(state=restore_raw(best)["model"])
+    want_logits = seg.make_seg_eval_step(model)(pts[:4], cls[:4]).cpu().numpy()
+    want_labels = seg.category_restricted_argmax(want_logits, cls[:4].cpu().numpy(),
+                                                 SEG_CLASSES, cls_names)
+    answer = _seg_serve_cli(art, pts[:4].cpu().numpy(), cls[:4].cpu().numpy(),
+                            os.path.join(tmp, "serve_seg.log"))
+    served = np.asarray(answer["outputs"], np.float32)
+    err = float(np.abs(served - want_logits).max())
+    check(np.isfinite(served).all() and err <= TOL_SERVE,
+          f"served seg logits differ from the eval step's by {err} > {TOL_SERVE}")
+    check(np.array_equal(np.asarray(answer["label"]), want_labels),
+          "served part labels differ from the eval step's category-restricted argmax")
+    res["served_vs_eval_step_max_abs_err"] = err
+    res["served_labels_equal"] = True
+    res["tol_serve"] = TOL_SERVE
+
+    # ---- (e) an artifact of another point count is refused
+    try:
+        export_model.main(["--config", SEG_CONFIG, "--ckpt", best, "--mode", "segmentation",
+                           "--input_points", str(2 * SEG_POINTS), "--device", "cuda",
+                           "--out", os.path.join(tmp, "refused.gm3dx")])
+    except ValueError as e:
+        res["input_points_refused"] = str(e)
+    else:
+        raise AssertionError("--mode segmentation accepted --input_points != npoints")
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": launches, "knn_propagation": knn_launch}
+
+
+def phase_fewshot(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
+    """The few-shot harness at full width from the pretrain checkpoint."""
+    from gm3d_tpu_torch.cli import fewshot as fewshot_cli
+    from gm3d_tpu_torch.data.datasets import SyntheticClouds
+    from gm3d_tpu_torch.train import finetune as ft
+    from gm3d_tpu_torch.train.optim import build_legacy_adamw
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    res = {"phase": "fewshot", "way": FS_WAY, "shot": FS_SHOT, "folds": FS_FOLDS}
+    out = os.path.join(tmp, "fewshot")
+    _fresh_cli_logger("gm3d.fewshot")
+    pp.reset_launches()  # the few-shot CLI's path: every launch count starts from 0 here
+    t0 = time.perf_counter()
+    records = fewshot_cli.main(["--config", FS_CONFIG, "--synthetic", "--way", str(FS_WAY),
+                                "--shot", str(FS_SHOT), "--folds", str(FS_FOLDS),
+                                "--epochs", str(FS_EPOCHS), "--pretrained", pretrained,
+                                "--output_dir", out])
+    wall = time.perf_counter() - t0
+    launches = pp.read_launches()
+    log = _read_log(out)
+    check(log == records and len(log) == 1, log)
+    rec = log[0]
+    check(len(rec["accs"]) == FS_FOLDS and all(0.0 <= a <= 100.0 for a in rec["accs"]), rec)
+    check(rec["mean"] == float(np.mean(rec["accs"])) and rec["std"] == float(np.std(rec["accs"])),
+          rec)
+    with open(os.path.join(out, "fewshot.log")) as f:
+        text = f.read()
+    moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
+    check(moved is not None and int(moved.group(1)) > 100,
+          f"the transfer log line reports {moved and moved.group(1)} keys")
+    # a fold: one step an epoch (50 clouds, B 32, the last partial batch
+    # dropped) and four evaluation batches of its 100 test clouds an epoch
+    test_batches = -(-FS_WAY * 20 // FS_BATCH)
+    per_fold = FS_EPOCHS * (1 + test_batches)
+    want = {k: v * per_fold * FS_FOLDS for k, v in FS_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"few-shot launches {launches}, expected {want}")
+    res.update(record=rec, launches=launches, keys_transferred=int(moved.group(1)),
+               wall_s=wall, seconds_per_fold=wall / FS_FOLDS)
+
+    # ---- the finetune step at the episode batch: launches and ms
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+
+    model = build_model_from_cfg({**cfg_from_yaml_file(FS_CONFIG)["model"], "cls_dim": FS_WAY})
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(DEV)
+    optimizer = build_legacy_adamw(model.named_parameters(), 5e-4, grad_clip=10.0)
+    state = create_train_state(model, optimizer)
+    step = ft.make_finetune_train_step(model, optimizer, 1024)
+    data = SyntheticClouds(FS_BATCH, 1024, num_classes=FS_WAY, seed=seed, labelled=True)
+    items = [data[i][2] for i in range(FS_BATCH)]
+    pts = torch.from_numpy(np.stack([p for p, _ in items])).to(DEV)
+    labels = torch.tensor([lab for _, lab in items], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    pp.reset_launches()
+    step(state, pts, labels, gen)
+    torch.cuda.synchronize()
+    res["launches_per_train_step"] = pp.read_launches()
+    check(res["launches_per_train_step"] == FS_LAUNCHES_PER_STEP, res["launches_per_train_step"])
+    ms, wall_ms, losses = _step_ms(lambda: step(state, pts, labels, gen)[1])
+    res["step"] = {"batch": FS_BATCH, "step_ms_cuda_events": ms, "step_ms_wall": wall_ms,
+                   "clouds_per_s": FS_BATCH / wall_ms * 1e3, "losses": losses}
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": launches}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume", "probe", "step_options", "finetune")
+          "resume", "probe", "step_options", "finetune", "segmentation", "fewshot")
 
 
 def main() -> None:
@@ -1964,8 +2306,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         options = (phase_step_options(env, trained, tmp) if "step_options" in phases
                    else None)
+    tuned = segmented = few = None
     with tempfile.TemporaryDirectory() as tmp:
-        tuned = phase_finetune(env, tmp, cli_args.seed) if "finetune" in phases else None
+        # one short epoch of the port's GM3D pretrain CLI: the weights of all three
+        if {"finetune", "segmentation", "fewshot"} & set(phases):
+            pretrained = _gm3d_pretrain_ckpt(tmp, 128, 64)
+        if "finetune" in phases:
+            tuned = phase_finetune(env, tmp, pretrained, cli_args.seed)
+        if "segmentation" in phases:
+            segmented = phase_segmentation(env, tmp, pretrained, cli_args.seed)
+        if "fewshot" in phases:
+            few = phase_fewshot(env, tmp, pretrained, cli_args.seed)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -1984,6 +2335,12 @@ def main() -> None:
         kern["launches_step_options"] = options["launches"][kern["name"]]
         # both finetune recipes' CLI runs: FPS and KNN only, as the JAX steps route it
         kern["launches_finetune"] = tuned["launches"][kern["name"]]
+        # the seg CLI's and the few-shot CLI's runs: FPS and KNN only
+        kern["launches_segmentation"] = segmented["launches"][kern["name"]]
+        kern["launches_fewshot"] = few["launches"][kern["name"]]
+        if kern["name"] == "knn":
+            # the feature propagation's shape: 2,048 queries on 128 references, k 3
+            kern["seg_propagation"] = segmented["knn_propagation"]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

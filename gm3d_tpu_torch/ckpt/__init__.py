@@ -4,6 +4,7 @@ state dicts under the reference's parameter names."""
 from gm3d_tpu_torch.ckpt.torch_import import (
     GM3D_STUDENT_MAP,
     POINT_MAE_MAP,
+    POINT_MAE_SEG_MAP,
     POINT_TRANSFORMER_MAP,
     load_flax_variables,
     load_pretrain_models,
@@ -14,6 +15,7 @@ from gm3d_tpu_torch.ckpt.torch_import import (
 __all__ = [
     "POINT_TRANSFORMER_MAP",
     "POINT_MAE_MAP",
+    "POINT_MAE_SEG_MAP",
     "GM3D_STUDENT_MAP",
     "state_dict_from_flax",
     "load_torch_file",

@@ -71,6 +71,22 @@ POINT_TRANSFORMER_MAP = {
     "cls_head_finetune.8": ("cls_head_finetune/fc3", "linear"),
 }
 
+# The part-segmentation model: the encoder under PointTransformer's torch names
+# (so that pretrain checkpoints overlay onto it as they are), the blocks at the
+# root of the flax tree (``block{i}``), no final LayerNorm, the head under its
+# flax names.
+POINT_MAE_SEG_MAP = {
+    **{k: (v.replace("blocks/block{i}", "block{i}"), kind)
+       for k, (v, kind) in _COMMON_ENCODER.items()},
+    "label_embed": ("label_embed", "linear"),
+    "prop_proj": ("prop_proj", "linear"),
+    "head_fc1": ("head_fc1", "linear"),
+    "head_bn1": ("head_bn1", "bn"),
+    "head_fc2": ("head_fc2", "linear"),
+    "head_bn2": ("head_bn2", "bn"),
+    "head_out": ("head_out", "linear"),
+}
+
 # the pretrain-time supervised probe (``--classification``)
 CLASSIFIER_MAP = {
     "norm": ("norm", "ln"),

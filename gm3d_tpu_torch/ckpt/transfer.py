@@ -5,7 +5,16 @@ checkpoint into ``PointTransformer`` with ``strict=False`` after stripping
 the ``MAE_encoder.`` / ``base_model.`` / ``module.`` key prefixes
 (``main_finetune.py:297-324``, ``models/Point_MAE.py:511-543``). The JAX
 package does that surgery on flax trees; here it is done on the state dicts
-under the reference's names, which the port's models load.
+under the reference's names, which the port's models load. The same overlay
+serves the part-segmentation model: ``PointMAESeg`` names its encoder and
+blocks as ``PointTransformer`` does (``blocks.blocks.{i}``), so the JAX
+overlay's ``flatten=("blocks",)`` (its seg model holds the blocks at the
+root) has no counterpart here, and the seg model's lack of a final LayerNorm
+leaves the checkpoint's among the unexpected keys, as there. One report
+differs, no weight: the GM3D student's feature head is ``head_fc1`` /
+``head_fc2`` in its flax tree, the seg head's names, so the JAX overlay lists
+those four leaves as shape mismatches; under their torch names
+(``increase_dim_2.*``) they are unexpected here.
 
 One name differs between the two spaces: the encoder's final LayerNorm is
 ``norm`` in every flax tree, but ``norm_p`` in ``PointTransformer`` and the
@@ -168,10 +177,11 @@ def _known_to(key: str, table: Mapping[str, Tuple[str, str]]) -> bool:
 
 def load_pretrained_into(model: torch.nn.Module, pretrained: str, torch_ckpt: bool = False,
                          logger=None) -> Tuple[int, TransferReport]:
-    """The pretrain -> finetune load of the finetune CLI, in place and
-    ``strict=True``. ``pretrained`` is a checkpoint root written by the
-    port's pretrain CLI (its latest step's ``model``, GM3D or Point-MAE), or,
-    with ``torch_ckpt``, a reference ``.pth``. A missing checkpoint raises
+    """The pretrain -> finetune load of the finetune, few-shot and
+    segmentation CLIs, in place and ``strict=True``. ``pretrained`` is a
+    checkpoint root written by the port's pretrain CLI (its latest step's
+    ``model``, GM3D or Point-MAE), or, with ``torch_ckpt``, a reference
+    ``.pth``. A missing checkpoint raises
     ``FileNotFoundError``; a checkpoint that transfers nothing raises
     ``ValueError``. Returns ``(n_transferred, report)``."""
     report = TransferReport()

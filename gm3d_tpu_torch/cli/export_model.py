@@ -8,6 +8,12 @@
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/config.yaml \
       --ckpt pretrained.pth --mode features --out feats.gm3dx
 
+  # part segmentation (seg config + the seg CLI's best checkpoint): inputs of
+  # exactly npoints points and each cloud's category; the manifest carries
+  # the category -> parts table the server's arg-max reads
+  python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/seg_shapenetpart.yaml \
+      --ckpt experiments/seg/ckpt/best --mode segmentation --out seg.gm3dx --export_batch 16
+
 ``--ckpt`` takes either of two forms:
 
   - a checkpoint ROOT written by the port's CLIs (``ckpt/checkpoint.py``):
@@ -36,6 +42,7 @@ from gm3d_tpu_torch.ckpt import load_torch_file
 from gm3d_tpu_torch.ckpt.checkpoint import restore_raw
 from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config
 from gm3d_tpu_torch.config import build_model_from_cfg
+from gm3d_tpu_torch.data.datasets import SEG_CLASSES
 from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS
 from gm3d_tpu_torch.serve.export import save_artifact
 from gm3d_tpu_torch.utils import get_logger
@@ -48,7 +55,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="a checkpoint root of the port's CLIs (.../ckpt, .../ckpt/best) "
                         "or a torch .pth state dict in the reference's names")
     p.add_argument("--out", required=True, help="output .gm3dx path")
-    p.add_argument("--mode", choices=["classifier", "features"], default="classifier")
+    p.add_argument("--mode", choices=["classifier", "features", "segmentation"],
+                   default="classifier")
     p.add_argument("--model_family", choices=["gm3d", "pointmae"], default="gm3d",
                    help="pretrain family for --mode features")
     p.add_argument("--export_batch", type=int, default=128,
@@ -57,7 +65,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--input_points", type=int, default=None,
                    help="points per input cloud (default: the config's "
                         "npoints; FPS to npoints runs inside the forward "
-                        "when larger)")
+                        "when larger; a segmentation export takes npoints only)")
     return p.parse_args(argv)
 
 
@@ -67,7 +75,8 @@ def _model_cfg(args, cfg) -> tuple[str, dict]:
         # the student's hyperparameters are the reference's hard-coded class
         # values, whatever the config's model section says
         return "GM3DStudent", {"NAME": "GM3D_Student"}
-    want = "PointTransformer" if args.mode == "classifier" else "Point_MAE"
+    want = {"classifier": "PointTransformer", "segmentation": "PointTransformerSeg",
+            "features": "Point_MAE"}[args.mode]
     if cfg["model"]["NAME"] != want:
         raise ValueError(
             f"--mode {args.mode} (--model_family {args.model_family}) exports a "
@@ -92,6 +101,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     dtype = compute_dtype(args)
     npoints = cfg.get("npoints", 1024)
     n_input = args.input_points or npoints
+    if args.mode == "segmentation" and n_input != npoints:
+        # seg outputs are PER POINT: an FPS in the forward would label another
+        # cloud than the caller sent (serve/export.py::build_seg_fn)
+        raise ValueError(
+            f"--mode segmentation requires --input_points == npoints ({npoints}); "
+            f"got {n_input}")
     check_input_points(n_input, npoints, device)
 
     model_name, model_cfg = _model_cfg(args, cfg)
@@ -122,6 +137,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         "compute_dtype": dtype_name(dtype),
         "quantization": "none",
     }
+    if args.mode == "segmentation":
+        # the category -> parts table, so that the server serves the
+        # category-restricted arg-max without this package's tables
+        manifest["seg_classes"] = {k: list(v) for k, v in SEG_CLASSES.items()}
+        manifest["cls_names"] = sorted(SEG_CLASSES)
     path = save_artifact(args.out, model, manifest,
                          (args.export_batch, n_input, 3), device)
     logger.info(f"exported {args.mode} ({model_name}) -> {path} "

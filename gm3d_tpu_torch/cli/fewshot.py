@@ -1,0 +1,180 @@
+"""Few-shot classification from the command line.
+
+Port of ``gm3d_tpu/cli/fewshot.py`` (reference ``cfgs/fewshot.yaml``
+protocol): for each of ``--folds`` {way}-way {shot}-shot episodes, a fresh
+``PointTransformer`` with ``way`` classes, the pretrain checkpoint overlaid
+(``--pretrained``), trained with the legacy runner's recipe and evaluated on
+the fold's test clouds; the best accuracy of each fold, their mean and
+standard deviation go into ``fewshot.log`` and, as one record
+``{"way", "shot", "mean", "std", "accs"}``, into ``log.txt``::
+
+  python -m gm3d_tpu_torch.cli.fewshot --config configs/pointmae/fewshot.yaml \\
+      --way 5 --shot 10 --folds 10 --pretrained /tmp/run/ckpt --synthetic --output_dir /tmp/fs
+
+The recipe is the legacy one of ``cli/finetune.py``: the config's rate
+verbatim, the per-epoch cosine over the scheduler's epochs with its warm-up,
+no decay on 1-d parameters, biases and tokens, the clip ``grad_norm_clip``,
+no layer decay, the label smoothing of the config's ``model.smooth``.
+
+Fold ``f`` draws its initial weights and its steps' random numbers from
+generators seeded ``f``, and shuffles its episode by ``f``, as the JAX CLI's
+keys do. The JAX CLI trains all folds at once by default, as one ``vmap``
+(``--parallel_folds``), and numerically equal to its sequential path; here
+the folds always run one after another with those same per-fold
+generators, and the flag is accepted for both values (training the folds
+together on the card is ``ROADMAP.md`` Queue 1 item 4c).
+
+Runs on the GPU unless ``--device cpu`` is given; ``--batch_floor`` is a
+no-op; ``--num_devices`` above 1 raises (item 8), and so does a Point-M2AE
+config (item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from gm3d_tpu_torch.ckpt.transfer import load_pretrained_into
+from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config, setup_mesh
+from gm3d_tpu_torch.config import build_model_from_cfg
+from gm3d_tpu_torch.data.datasets import DataLoader, SyntheticClouds, build_dataset_from_cfg
+from gm3d_tpu_torch.eval.metrics import accuracy
+from gm3d_tpu_torch.train.finetune import make_eval_step, make_finetune_train_step
+from gm3d_tpu_torch.train.optim import build_legacy_adamw, set_scheduled_lr
+from gm3d_tpu_torch.train.schedules import legacy_cosine_epoch_schedule
+from gm3d_tpu_torch.train.state import create_train_state
+from gm3d_tpu_torch.utils import JsonlLogger, get_logger
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = base_parser("few-shot classification")
+    p.add_argument("--way", type=int, default=5)
+    p.add_argument("--shot", type=int, default=10)
+    p.add_argument("--folds", type=int, default=10)
+    p.add_argument("--pretrained", default=None,
+                   help="a pretrain checkpoint root (the pretrain CLI's <output_dir>/ckpt) "
+                        "or, with --torch_ckpt, a reference .pth; each fold is fine-tuned "
+                        "from it, the reference few-shot protocol")
+    p.add_argument("--torch_ckpt", action="store_true", help="--pretrained is a torch .pth")
+    p.add_argument("--parallel_folds", default=True, action=argparse.BooleanOptionalAction,
+                   help="the JAX CLI trains all folds in one vmapped program; here the "
+                        "folds run one after another either way, each from the generators "
+                        "seeded by its index, which is what the JAX CLI's parallel path "
+                        "computes")
+    return p.parse_args(argv)
+
+
+def make_fold_data(args, cfg, fold: int, npoints: int):
+    """(train_loader, test_loader) of one fold, each yielding (points,
+    labels): on ``--synthetic``, ``way * shot`` training and ``way * 20``
+    test clouds in ``way`` classes (seeds ``fold`` and ``fold + 100``); else
+    the config's ``ModelNetFewShot`` fold. The batch is the config's or the
+    whole episode where that is smaller; the train loader shuffles by
+    ``(fold, epoch)``."""
+    way = args.way
+    if args.synthetic:
+        train_ds = SyntheticClouds(way * args.shot, npoints, num_classes=way,
+                                   seed=fold, labelled=True)
+        test_ds = SyntheticClouds(way * 20, npoints, num_classes=way,
+                                  seed=fold + 100, labelled=True)
+    else:
+        for key in ("train", "val"):
+            cfg["dataset"][key]["others"].update(way=way, shot=args.shot, fold=fold)
+        train_ds = build_dataset_from_cfg(cfg["dataset"]["train"])
+        test_ds = build_dataset_from_cfg(cfg["dataset"]["val"])
+    bs = min(cfg["total_bs"], len(train_ds))
+    return (DataLoader(train_ds, bs, seed=fold),
+            DataLoader(test_ds, bs, shuffle=False, drop_last=False))
+
+
+def build_model(args, cfg, fold: int, dtype: torch.dtype):
+    """The config's ``PointTransformer`` with ``way`` classes, weights drawn
+    from a generator seeded ``fold`` (the JAX CLI's init key)."""
+    if cfg["model"]["NAME"].startswith("Point_M2AE"):
+        raise NotImplementedError(
+            f"few-shot with {cfg['model']['NAME']} is not ported to gm3d_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 3)")
+    model = build_model_from_cfg({**cfg["model"], "cls_dim": args.way}, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(fold))
+    return model
+
+
+def init_fold_model(args, cfg, fold: int, dtype: torch.dtype, logger):
+    """Per-fold initialisation and pretrain overlay (few-shot is the
+    finetune protocol); the transfer report is logged for fold 0 only."""
+    model = build_model(args, cfg, fold, dtype)
+    if args.pretrained:
+        load_pretrained_into(model, args.pretrained, torch_ckpt=args.torch_ckpt,
+                             logger=logger if fold == 0 else None)
+    return model
+
+
+def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
+    """Train and evaluate one fold; its best test accuracy in percent."""
+    dtype = compute_dtype(args)
+    npoints = cfg.get("npoints", 1024)
+    train_loader, test_loader = make_fold_data(args, cfg, fold, npoints)
+    model = init_fold_model(args, cfg, fold, dtype, logger).to(dev)
+    epochs = cfg["max_epoch"]
+    steps_per_epoch = max(len(train_loader), 1)
+    # the legacy runner's stack (cfgs/fewshot.yaml is legacy-format); the
+    # cosine's horizon is the scheduler's epochs, not --epochs
+    sched = legacy_cosine_epoch_schedule(
+        cfg["optimizer"]["kwargs"]["lr"],
+        cfg["scheduler"]["kwargs"].get("epochs", epochs),
+        cfg["scheduler"]["kwargs"]["initial_epochs"], steps_per_epoch)
+    optimizer = build_legacy_adamw(model.named_parameters(), sched(0),
+                                   cfg["optimizer"]["kwargs"]["weight_decay"],
+                                   grad_clip=cfg.get("grad_norm_clip"))
+    state = create_train_state(model, optimizer)
+    smoothing = cfg["model"].get("smooth", 0.0)
+    if fold == 0 and smoothing:
+        logger.info(f"label smoothing {smoothing} (config model.smooth)")
+    step = make_finetune_train_step(model, optimizer, npoints, smoothing, device=dev)
+    eval_step = make_eval_step(model, npoints, device=dev)
+
+    generator = torch.Generator(device=dev).manual_seed(fold)
+    best = 0.0
+    for epoch in range(epochs):
+        for pts, labels in train_loader:
+            set_scheduled_lr(optimizer, sched(state.step))
+            step(state, torch.as_tensor(pts), torch.as_tensor(labels), generator)
+        if (epoch + 1) % args.val_freq == 0 or epoch == epochs - 1:
+            logits, labels_all = [], []
+            for pts, labels in test_loader:
+                logits.append(eval_step(torch.as_tensor(pts)))
+                labels_all.append(np.asarray(labels))
+            acc = accuracy(torch.cat(logits).float().cpu().numpy(),
+                           np.concatenate(labels_all)) * 100.0
+            best = max(best, acc)
+    logger.info(f"fold {fold}: best acc {best:.2f}")
+    return best
+
+
+def main(argv: Optional[List[str]] = None) -> List[dict]:
+    """Run every fold; returns the record written to ``log.txt``, in a list."""
+    args = parse_args(argv)
+    dev = setup_mesh(args)
+    # fp32 products in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(args)
+    logger = get_logger("gm3d.fewshot", os.path.join(args.output_dir, "fewshot.log"))
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+    if args.batch_floor:
+        logger.info("--batch_floor is a no-op on the GPU")
+    accs = [run_fold(args, cfg, fold, logger, dev) for fold in range(args.folds)]
+    mean, std = float(np.mean(accs)), float(np.std(accs))
+    logger.info(f"{args.way}-way {args.shot}-shot over {args.folds} folds: "
+                f"{mean:.1f} +/- {std:.1f}")
+    record = {"way": args.way, "shot": args.shot, "mean": mean, "std": std, "accs": accs}
+    jsonl.write(record)
+    return [record]
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,8 @@
 schemas under ``configs/`` onto the modules of this package.
 
 Port of ``gm3d_tpu/config/registry.py`` for the models ported so far:
-``PointTransformer``, ``Point_MAE`` and the GM3D student. The dataset readers
+``PointTransformer``, ``PointTransformerSeg``, ``Point_MAE`` and the GM3D
+student; ``Point_M2AE_SEG`` raises ``NotImplementedError``. The dataset readers
 of ``data/datasets.py`` register in ``DATASETS`` under the reference ``NAME``."""
 
 from __future__ import annotations
@@ -74,6 +75,37 @@ def build_point_transformer(cfg, dtype: torch.dtype = torch.float32):
         drop_path_rate=cfg["drop_path_rate"],
         dtype=dtype,
     )
+
+
+@MODELS.register_module("PointTransformerSeg")
+def build_seg_model(cfg, dtype: torch.dtype = torch.float32):
+    """ShapeNetPart seg model (16 classes / 50 parts,
+    ``main_finetune_segmentation.py:232-233``); config schema: the ``model``
+    section of ``configs/pointmae/seg_shapenetpart.yaml``, ``feature_blocks``
+    optional."""
+    from gm3d_tpu_torch.models import PointMAESeg
+
+    return PointMAESeg(
+        trans_dim=cfg.get("trans_dim", 384),
+        depth=cfg.get("depth", 12),
+        num_heads=cfg.get("num_heads", 6),
+        group_size=cfg.get("group_size", 32),
+        num_group=cfg.get("num_group", 128),
+        encoder_dims=cfg.get("encoder_dims", 384),
+        drop_path_rate=cfg.get("drop_path_rate", 0.1),
+        num_classes=cfg.get("num_classes", 16),
+        num_parts=cfg.get("cls_dim", 50),
+        feature_blocks=tuple(cfg.get("feature_blocks", (3, 7, 11))),
+        dtype=dtype,
+    )
+
+
+@MODELS.register_module("Point_M2AE_SEG")
+def build_m2ae_seg_model(cfg, dtype: torch.dtype = torch.float32):
+    """ShapeNetPart seg on the Point-M2AE encoder: not ported yet."""
+    raise NotImplementedError(
+        "Point_M2AE_SEG (part segmentation on the Point-M2AE encoder) is not ported "
+        "to gm3d_tpu_torch yet (ROADMAP.md Queue 1 item 3)")
 
 
 @MODELS.register_module("GM3D_Student")

@@ -8,9 +8,6 @@ and, when the on-disk data is absent, raises ``FileNotFoundError`` at
 construction; callers that just need a pipeline (tests, smoke runs) use
 ``SyntheticClouds``.
 
-Not ported yet: ``ModelNetFewShot`` (few-shot finetune, ``ROADMAP.md``
-Queue 1 item 4b) and ``ShapeNetPart`` (segmentation, item 5).
-
 One departure: ``ModelNet`` reads its point count from ``others.npoints``
 and, where the config does not set it (``configs/pointmae/
 finetune_modelnet.yaml`` does not), from ``_base_.N_POINTS``, as the
@@ -19,8 +16,10 @@ reference's reader does; the JAX package's raises ``KeyError`` there.
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
+from typing import List, Tuple
 
 import numpy as np
 
@@ -258,6 +257,128 @@ class ScanObjectNNHardest(_ScanObjectNNBase):
 
     def __init__(self, cfg):
         super().__init__(cfg, "hardest")
+
+
+@DATASETS.register_module("ModelNetFewShot")
+class ModelNetFewShot:
+    """Pre-generated few-shot folds (``datasets/ModelNetDatasetFewShot.py:24-67``):
+    ``{way}way_{shot}shot/{fold}.pkl`` as ``data/fewshot_gen.py`` writes them.
+    A train item's points are shuffled anew each epoch."""
+
+    def __init__(self, cfg):
+        base = cfg["_base_"]
+        others = cfg["others"]
+        self.root = base["DATA_PATH"]
+        self.subset = others["subset"]
+        way, shot, fold = others["way"], others["shot"], others["fold"]
+        path = os.path.join(self.root, f"{way}way_{shot}shot", f"{fold}.pkl")
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        self.dataset = data["train" if self.subset == "train" else "test"]
+        self._rng = _ItemRng(0xFE57)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._rng.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        pts, label, _ = self.dataset[idx]
+        pts = pts[:, :3].astype(np.float32)
+        if self.subset == "train":
+            pts = _shuffled(self._rng.for_item(idx), pts)
+        return "ModelNetFewShot", "sample", (pts, int(label))
+
+
+# ShapeNetPart's 16 object categories and the part labels each may take
+SEG_CLASSES = {
+    "Earphone": [16, 17, 18], "Motorbike": [30, 31, 32, 33, 34, 35], "Rocket": [41, 42, 43],
+    "Car": [8, 9, 10, 11], "Laptop": [28, 29], "Cap": [6, 7], "Skateboard": [44, 45, 46],
+    "Mug": [36, 37], "Guitar": [19, 20, 21], "Bag": [4, 5], "Lamp": [24, 25, 26, 27],
+    "Table": [47, 48, 49], "Airplane": [0, 1, 2, 3], "Pistol": [38, 39, 40],
+    "Chair": [12, 13, 14, 15], "Knife": [22, 23],
+}
+
+
+@DATASETS.register_module("ShapeNetPart")
+class ShapeNetPart:
+    """ShapeNetPart segmentation (PartNormalDataset semantics,
+    ``main_finetune_segmentation.py:225-233``: 16 classes / 50 parts,
+    npoints 2048, normal channel optional). Items are
+    ``(name, path, (points, category, part labels))``."""
+
+    def __init__(self, cfg):
+        base = cfg["_base_"]
+        others = cfg["others"]
+        self.root = base["DATA_PATH"]
+        self.npoints = others.get("npoints", 2048)
+        self.use_normals = base.get("USE_NORMALS", False)
+        self.subset = others["subset"]
+        catfile = os.path.join(self.root, "synsetoffset2category.txt")
+        self.categories = {}
+        with open(catfile) as f:
+            for line in f:
+                name, synset = line.strip().split()
+                self.categories[name] = synset
+        self.cls_names = sorted(self.categories)
+        self.cls_ids = {c: i for i, c in enumerate(self.cls_names)}
+
+        split_file = os.path.join(
+            self.root, "train_test_split",
+            f"shuffled_{'train' if self.subset == 'train' else 'test'}_file_list.json",
+        )
+        with open(split_file) as f:
+            file_list = json.load(f)
+        self.files: List[Tuple[str, str]] = []
+        for item in file_list:
+            synset, token = item.split("/")[1], item.split("/")[2]
+            for name, s in self.categories.items():
+                if s == synset:
+                    self.files.append((name, os.path.join(self.root, synset, token + ".txt")))
+        self._rng = _ItemRng(0x5E6)
+
+    def __len__(self):
+        return len(self.files)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._rng.set_epoch(epoch)
+
+    def _load_raw(self, path: str) -> np.ndarray:
+        """The item's ``x y z nx ny nz part`` rows, from a one-time ``.npy``
+        cache beside the text file (about 100 times faster to read again).
+        The cache is written under a temporary name and moved into place; a
+        read-only directory leaves it unwritten, and a corrupt cache is
+        parsed again and rewritten. An empty or malformed item raises
+        ``ValueError`` naming the file, and is never cached."""
+        cache = path + ".npy"
+        if os.path.exists(cache):
+            try:
+                return np.load(cache)
+            except (ValueError, OSError, EOFError):
+                pass  # truncated/corrupt cache: re-parse and rewrite below
+        raw = np.atleast_2d(np.loadtxt(path).astype(np.float32))
+        if raw.size == 0 or raw.shape[1] < 4:
+            raise ValueError(f"empty or malformed ShapeNetPart item: {path}")
+        try:
+            tmp = f"{cache}.{os.getpid()}.tmp.npy"  # .npy suffix: np.save won't rename
+            np.save(tmp, raw)
+            os.replace(tmp, cache)
+        except OSError:
+            pass
+        return raw
+
+    def __getitem__(self, idx):
+        name, path = self.files[idx]
+        raw = self._load_raw(path)
+        # a (tag, epoch, idx)-seeded draw: resamples each epoch, as the
+        # reference's per-epoch np.random.choice, and survives a resume
+        choice = self._rng.for_item(idx).integers(0, raw.shape[0], self.npoints)
+        raw = raw[choice]
+        pts = raw[:, :6] if self.use_normals else raw[:, :3]
+        pts[:, :3] = pc_normalize(pts[:, :3])
+        seg = raw[:, -1].astype(np.int64)
+        return name, path, (pts, self.cls_ids[name], seg)
 
 
 class SyntheticClouds:

@@ -1,2 +1,2 @@
-"""Evaluation: the linear-SVM probe, the linear C-SVC it fits, and the
-classifier's accuracy."""
+"""Evaluation: the linear-SVM probe, the linear C-SVC it fits, the
+classifier's accuracy and the part segmentation's mIoU."""

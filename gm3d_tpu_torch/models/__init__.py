@@ -1,6 +1,8 @@
-"""Models of the port: PointTransformer classifier, and the encoders of
-Point-MAE and the GM3D student. All are ``nn.Module``s with a configurable
-compute dtype; parameters are fp32 and carry the reference's names."""
+"""Models of the port: PointTransformer classifier, the part-segmentation
+model PointMAESeg, and the encoders of Point-MAE and the GM3D student. All
+are ``nn.Module``s with a configurable compute dtype; parameters are fp32 and
+carry the reference's names (the segmentation head, which the reference does
+not ship, the JAX package's)."""
 
 from gm3d_tpu_torch.models.blocks import (
     Attention,
@@ -15,6 +17,7 @@ from gm3d_tpu_torch.models.blocks import (
 from gm3d_tpu_torch.models.gm3d import GM3DStudent
 from gm3d_tpu_torch.models.point_transformer import Classifier, ClsHead, PointTransformer
 from gm3d_tpu_torch.models.pointmae import MaskTransformer, PointMAE
+from gm3d_tpu_torch.models.segmentation import PointMAESeg
 
 __all__ = [
     "Mlp",
@@ -31,4 +34,5 @@ __all__ = [
     "PointTransformer",
     "ClsHead",
     "Classifier",
+    "PointMAESeg",
 ]

@@ -10,7 +10,8 @@ at most ``max_wait_ms`` after the first, runs one padded device call per
 collected batch, and distributes the output slices.
 
 The single consumer thread also serializes device dispatch, so concurrent
-requests never interleave their device calls.
+requests never interleave their device calls. A segmentation artifact's
+per-cloud category travels with its cloud.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from gm3d_tpu_torch.serve.runner import ServingModel, check_points
 
 
 class _Item:
-    __slots__ = ("cloud", "event", "result", "error")
+    __slots__ = ("cloud", "label", "event", "result", "error")
 
-    def __init__(self, cloud: np.ndarray):
+    def __init__(self, cloud: np.ndarray, label=None):
         self.cloud = cloud
+        self.label = label
         self.event = threading.Event()
         self.result = None
         self.error: Exception | None = None
@@ -66,9 +68,13 @@ class DynamicBatcher:
 
     # -- request side ------------------------------------------------------
 
-    def predict(self, points: np.ndarray) -> np.ndarray:
+    def predict(self, points: np.ndarray, cls_label=None) -> np.ndarray:
         points, single = check_points(points, self.model.npoints)
-        items = [_Item(c) for c in points]
+        labels = self.model.check_request_labels(cls_label, points.shape[0], single)
+        if labels is None:
+            items = [_Item(c) for c in points]
+        else:
+            items = [_Item(c, lab) for c, lab in zip(points, labels)]
         with self._lock:
             if self._closed:
                 raise RuntimeError("DynamicBatcher is closed")
@@ -133,8 +139,10 @@ class DynamicBatcher:
             if batch is None:
                 return
             clouds = np.stack([it.cloud for it in batch])
+            labels = (np.stack([it.label for it in batch])
+                      if self.model.needs_labels else None)
             try:
-                out = self.model.predict(clouds)
+                out = self.model.predict(clouds, labels)
             except Exception as e:  # propagate to every caller in the batch
                 for it in batch:
                     it.error = e

@@ -8,6 +8,8 @@ Port of ``gm3d_tpu/serve/runner.py``. The artifact has a STATIC batch;
   - ``B > batch``: chunk into ceil(B / batch) calls
 
 Padding clouds are all-zeros; their outputs are discarded, never returned.
+A segmentation artifact also takes each cloud's object category
+(``cls_label``), padded and chunked in lockstep with the points.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ def check_labels(cls_label, b: int, single: bool, dtype,
     A scalar label is promoted alongside a single-cloud request; otherwise
     the shape must be ``(b,)``. With ``num_classes`` the values must lie in
     ``[0, num_classes)``. Raises ``ValueError`` on any violation (same
-    request-thread contract as :func:`check_points`). No artifact served by
-    this package takes labels yet; the segmentation slice is its caller."""
+    request-thread contract as :func:`check_points`). Shared by
+    :class:`ServingModel` and the dynamic batcher for segmentation
+    artifacts."""
     lab = np.asarray(cls_label)
     if single and lab.ndim == 0:
         lab = lab[None]
@@ -92,15 +95,48 @@ class ServingModel:
         self.batch, self.npoints, _ = self.manifest["input_shape"]
         self.device_call = self._fn.device_call
         self.module = self._fn.module
+        # at most one extra per-cloud input: the seg model's cls_label
+        extra = self.manifest.get("extra_inputs", [])
+        if len(extra) > 1:
+            raise ValueError(
+                f"artifact has {len(extra)} extra inputs; ServingModel supports at most "
+                "one (per-cloud cls_label)")
+        self._label_dtype = np.dtype(extra[0]["dtype"]) if extra else None
+        # the category count bounds the labels (seg exports carry the names)
+        names = self.manifest.get("cls_names")
+        self._num_categories = len(names) if names else None
+
+    @property
+    def needs_labels(self) -> bool:
+        """True for artifacts with a per-cloud label input (segmentation)."""
+        return self._label_dtype is not None
+
+    def check_request_labels(self, cls_label, b: int, single: bool):
+        """The request's labels checked against the artifact: required by a
+        segmentation artifact (``check_labels``), refused by any other.
+        Returns the labels or None."""
+        if self.needs_labels:
+            if cls_label is None:
+                raise ValueError(
+                    "this artifact requires cls_label (per-cloud object category) "
+                    "alongside the points")
+            return check_labels(cls_label, b, single, self._label_dtype,
+                                self._num_categories)
+        if cls_label is not None:
+            raise ValueError("this artifact takes no cls_label input")
+        return None
 
     @property
     def info(self) -> Dict[str, Any]:
         return dict(self.manifest)
 
-    def predict(self, points: np.ndarray) -> np.ndarray:
-        """points (B, N, 3) or (N, 3) -> outputs (B, ...) / (...)."""
+    def predict(self, points: np.ndarray, cls_label=None) -> np.ndarray:
+        """points (B, N, 3) or (N, 3) -> outputs (B, ...) / (...).
+        Segmentation artifacts also take ``cls_label``, the per-cloud object
+        category, (B,) int (a scalar with a single cloud)."""
         points, single = check_points(points, self.npoints)
         b = points.shape[0]
+        labels = self.check_request_labels(cls_label, b, single)
         outs = []
         for start in range(0, b, self.batch):
             chunk = points[start:start + self.batch]
@@ -108,6 +144,10 @@ class ServingModel:
             if n < self.batch:
                 pad = np.zeros((self.batch - n,) + chunk.shape[1:], np.float32)
                 chunk = np.concatenate([chunk, pad], axis=0)
-            outs.append(self._fn(chunk)[:n])
+            extra = ()
+            if labels is not None:
+                lab = labels[start:start + self.batch]
+                extra = (np.concatenate([lab, np.zeros(self.batch - n, lab.dtype)]),)
+            outs.append(self._fn(chunk, *extra)[:n])
         out = np.concatenate(outs, axis=0)
         return out[0] if single else out

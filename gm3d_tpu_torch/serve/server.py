@@ -10,11 +10,17 @@ Endpoints:
                      or a raw ``.npy`` array (Content-Type:
                      application/octet-stream); response is JSON
                      {"outputs": ..., "label": ...} (``label`` = argmax over
-                     the last axis, only for classifier artifacts)
+                     the last axis, for classifier artifacts)
 
-Contract violations (malformed body, wrong shape) answer 400; a failure on
-the device answers 500. Segmentation artifacts are refused when the artifact
-is loaded.
+A segmentation artifact takes JSON only, {"points": ..., "cls_label": ...}
+with each cloud's object category, and answers {"label": ...}: per-point
+part labels by the category-restricted arg-max of the manifest's
+category -> parts table (``train/segmentation.py::
+category_restricted_argmax``); the per-point logits come back under
+``outputs`` only when the body asks with ``"return_logits": true``.
+
+Contract violations (malformed body, wrong shape, missing or out-of-range
+labels) answer 400; a failure on the device answers 500.
 """
 
 from __future__ import annotations
@@ -27,6 +33,21 @@ import numpy as np
 
 from gm3d_tpu_torch.serve.batcher import DynamicBatcher
 from gm3d_tpu_torch.serve.runner import ServingModel
+from gm3d_tpu_torch.train.segmentation import category_restricted_argmax
+
+
+def _seg_labels(logits: np.ndarray, cls_label, manifest: dict) -> np.ndarray:
+    """Per-point part ids from seg logits: the category-restricted arg-max
+    by the manifest's category -> parts table (``serve/export.py`` refuses
+    a segmentation manifest without it; the runner refuses a request
+    without ``cls_label``)."""
+    single = logits.ndim == 2
+    if single:
+        logits = logits[None]
+    labels = np.atleast_1d(np.asarray(cls_label))
+    pred = category_restricted_argmax(logits, labels, manifest["seg_classes"],
+                                      manifest["cls_names"])
+    return pred[0] if single else pred
 
 
 def _make_handler(model: ServingModel, backend):
@@ -62,6 +83,8 @@ def _make_handler(model: ServingModel, backend):
             if self.path != "/predict":
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
+            cls_label = None
+            return_logits = True
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 blob = self.rfile.read(length)
@@ -74,22 +97,30 @@ def _make_handler(model: ServingModel, backend):
                         raise ValueError(
                             'body must be a JSON object {"points": [...]}')
                     points = np.asarray(body["points"], np.float32)
+                    if "cls_label" in body:
+                        cls_label = np.asarray(body["cls_label"])
+                    if model.manifest.get("mode") == "segmentation":
+                        # per-point logits are large; opt-in only
+                        return_logits = bool(body.get("return_logits", False))
             except (ValueError, KeyError, TypeError, EOFError) as e:
                 # json.JSONDecodeError is a ValueError; TypeError covers
                 # ragged nested lists np.asarray rejects
                 self._send(400, {"error": str(e)})
                 return
             try:
-                out = backend.predict(points)
+                out = backend.predict(points, cls_label)
             except ValueError as e:  # shape contract violations -> client error
                 self._send(400, {"error": str(e)})
                 return
             except Exception as e:  # device/runtime failure -> server error
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            payload = {"outputs": out.tolist()}
-            if model.manifest.get("mode") == "classifier":
+            payload = {"outputs": out.tolist()} if return_logits else {}
+            mode = model.manifest.get("mode")
+            if mode == "classifier":
                 payload["label"] = np.argmax(out, axis=-1).tolist()
+            elif mode == "segmentation":
+                payload["label"] = _seg_labels(out, cls_label, model.manifest).tolist()
             self._send(200, payload)
 
     return Handler

@@ -140,17 +140,19 @@ def make_finetune_train_step(model: nn.Module, optimizer, npoints: int = 1024,
 
 
 def make_finetune_multi_step(step_fn: Callable) -> Callable:
-    """``multi(state, pts_stack, labels_stack, generator)``: K calls of
-    ``step_fn`` over the K batches of ``pts_stack`` (K, B, N, 3), in order (a
-    ``lax.scan`` in the JAX package; the port's step runs eagerly, so this is
-    a loop and saves no dispatch). Returns the final state and each metric
-    stacked over the K steps, as the scan returns them."""
+    """``multi(state, *stacks, generator)``: K calls of ``step_fn`` over the
+    K batches of the stacks, each (K, B, ...), in order (a ``lax.scan`` in
+    the JAX package; the port's step runs eagerly, so this is a loop and
+    saves no dispatch). The classification step takes the stacks of points
+    and labels, the segmentation step (``train/segmentation.py``) those of
+    points, categories and part labels. Returns the final state and each
+    metric stacked over the K steps, as the scan returns them."""
 
-    def multi(state: TrainState, pts_stack: torch.Tensor, labels_stack: torch.Tensor,
-              generator: Optional[torch.Generator]):
+    def multi(state: TrainState, *args):
+        *stacks, generator = args
         history = []
-        for k in range(pts_stack.shape[0]):
-            state, metrics = step_fn(state, pts_stack[k], labels_stack[k], generator)
+        for k in range(stacks[0].shape[0]):
+            state, metrics = step_fn(state, *(s[k] for s in stacks), generator)
             history.append(metrics)
         return state, {n: torch.stack([m[n] for m in history]) for n in history[0]}
 

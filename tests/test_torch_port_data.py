@@ -256,9 +256,10 @@ def test_io_reads_npy_and_txt_and_refuses_others(tmp_path):
 
 
 def test_unknown_dataset_name_raises():
-    # a reader not ported yet (the few-shot folds, ROADMAP.md Queue 1 item 4b)
+    # every reader of the JAX package is ported since the few-shot folds and
+    # ShapeNetPart came in; a name that no reader has still raises
     with pytest.raises(KeyError, match="not registered"):
-        ds.build_dataset_from_cfg({"_base_": {"NAME": "ModelNetFewShot"}})
+        ds.build_dataset_from_cfg({"_base_": {"NAME": "NoSuchDataset"}})
 
 
 # ---------------------------------------------------------------------------

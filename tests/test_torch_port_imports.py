@@ -56,6 +56,14 @@ CKPT_MODULES = {
 PROBE_MODULES = {"gm3d_tpu_torch.eval.svm", "gm3d_tpu_torch.eval.linear_svc"}
 
 
+# part segmentation and the few-shot harness
+SEG_FEWSHOT_MODULES = {
+    "gm3d_tpu_torch.models.segmentation", "gm3d_tpu_torch.train.segmentation",
+    "gm3d_tpu_torch.cli.finetune_seg", "gm3d_tpu_torch.cli.fewshot",
+    "gm3d_tpu_torch.data.fewshot_gen", "gm3d_tpu_torch.eval.metrics",
+}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -67,8 +75,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(_IMPORT_ALL, PATH="", CUDA_HOME="", CUDA_PATH="")
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
-    assert int(lines["IMPORTED"]) >= 48
-    assert PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES <= set(lines["NAMES"].split())
+    assert int(lines["IMPORTED"]) >= 53
+    assert (PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES | SEG_FEWSHOT_MODULES
+            <= set(lines["NAMES"].split()))
     assert lines["FOREIGN"] == "[]"
 
 
@@ -223,6 +232,38 @@ def test_finetune_entry_points_default_to_cuda_and_say_so(tmp_path):
     assert logits.shape == (2, 3)
     vote = finetune.make_vote_eval_step(model, 1024, times=2, device="cpu")
     assert vote(torch.randn(2, 1024, 3), torch.Generator()).shape == (2, 3)
+
+
+def test_seg_and_fewshot_entry_points_default_to_cuda_and_say_so(tmp_path):
+    """The segmentation and few-shot CLIs and the seg steps of
+    ``train/segmentation.py`` raise without a GPU unless given ``--device
+    cpu`` / ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli import fewshot as fewshot_cli
+    from gm3d_tpu_torch.cli import finetune_seg as seg_cli
+    from gm3d_tpu_torch.models import PointMAESeg
+    from gm3d_tpu_torch.train import segmentation
+
+    model = PointMAESeg(trans_dim=16, depth=2, num_heads=2, group_size=4, num_group=8,
+                        encoder_dims=16, feature_blocks=(0, 1))
+    optimizer = torch.optim.SGD(model.parameters(), lr=1e-3)
+    seg_flags = ["--config", "configs/pointmae/seg_shapenetpart.yaml", "--synthetic",
+                 "--output_dir", str(tmp_path / "seg")]
+    fs_flags = ["--config", "configs/pointmae/fewshot.yaml", "--synthetic",
+                "--output_dir", str(tmp_path / "fs")]
+    for entry in (lambda: seg_cli.main(seg_flags), lambda: fewshot_cli.main(fs_flags),
+                  lambda: segmentation.make_seg_train_step(model, optimizer),
+                  lambda: segmentation.make_seg_eval_step(model)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert not (tmp_path / "seg" / "log.txt").exists()
+    assert not (tmp_path / "fs" / "log.txt").exists()
+    # asked for, the CPU is taken
+    segmentation.make_seg_train_step(model, optimizer, device="cpu")
+    logits = segmentation.make_seg_eval_step(model, device="cpu")(torch.randn(2, 32, 3),
+                                                                  torch.tensor([0, 15]))
+    assert logits.shape == (2, 32, 50)
 
 
 @pytest.mark.parametrize("wrapper", ["patch_embed", "attention_fwd", "attention_bwd"])

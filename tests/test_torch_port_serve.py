@@ -210,15 +210,16 @@ def test_export_guards(classifier_artifact, tmp_path):
     assert ServingModel(art, devices=["cpu"]).batch == BATCH
     with pytest.raises(ValueError, match="num_devices"):
         make_server(art, num_devices=2, device="cpu")
-    # a segmentation manifest is refused when the artifact is loaded
-    seg = tmp_path / "seg.gm3dx"
-    with zipfile.ZipFile(art) as src, zipfile.ZipFile(seg, "w") as dst:
+    # a manifest of a mode this package does not serve is refused when the
+    # artifact is loaded (segmentation is served since its slice came in)
+    other = tmp_path / "other.gm3dx"
+    with zipfile.ZipFile(art) as src, zipfile.ZipFile(other, "w") as dst:
         manifest = json.loads(src.read("manifest.json"))
-        manifest["mode"] = "segmentation"
+        manifest["mode"] = "detection"
         dst.writestr("manifest.json", json.dumps(manifest))
         dst.writestr("weights.pt", src.read("weights.pt"))
-    with pytest.raises(ValueError, match="segmentation"):
-        load_artifact(str(seg), device="cpu")
+    with pytest.raises(ValueError, match="'detection' is not served"):
+        load_artifact(str(other), device="cpu")
 
 
 def test_export_without_ckpt_draws_weights_from_seed(classifier_artifact, tmp_path):
