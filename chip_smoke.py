@@ -114,6 +114,30 @@ Phases, each printing one JSON line when it ends:
               ``log.txt``, seconds a fold, launches (FPS 1, KNN 1 a step or
               an evaluation batch), the finetune step's ms at the episode
               batch
+  m2ae        the Point-M2AE family at ``config_Point_M2AE.yaml``'s full width (B 128 x
+              2,048 points, 512 / 256 / 64 groups): FPS and KNN at every shape of the
+              hierarchy and its k = 1 maps on the step's inputs, index-equal to their
+              plain versions (KNN distances within rtol 1e-6), each with its CUDA-graph
+              time, ``cdist`` + ``topk`` and its bound; the bare ``m2ae_gm3d`` and
+              ``m2ae`` steps (launches FPS 3 / KNN 8 and 3 / 6; ms, clouds per second
+              and peak memory, fp32, and ``m2ae_gm3d`` in bf16; one step with the fused
+              attention, 2 forwards and 1 backward); one ``m2ae_gm3d`` step at B 4 on
+              the card and on the CPU from the same weights and draws (stochastic
+              depth 0), metrics within ``TOL_M2AE_STEP``; the pretrain CLI
+              ``--model_family m2ae_gm3d`` for one epoch of 4 steps with its SVM
+              probe (records, launches, ``ckpt/best``);
+              then the classifier (``finetune_modelnet_PointM2AE.yaml``) finetuned
+              from that checkpoint for one epoch on phase ``finetune``'s ModelNet
+              directory (hpm, more than 100 keys transferred, launches FPS 4 / KNN 3 a
+              step or an eval batch), ``ckpt/best`` exported and served in a process of
+              its own, its logits within ``TOL_SERVE`` of the eval step's, and the
+              classifier's bare step at B 40 (FPS 8,192 -> 1,200 and the hierarchy of
+              its subsampled 1,024-point clouds, 1,024 -> 512 ..., on the step's own
+              inputs and draws, held against the plain versions as above); the seg
+              model (``seg_shapenetpart_PointM2AE.yaml``, B 16): its hierarchy and the
+              k = 3 propagation of all 2,048 points onto 512, 256 and 64 centers held
+              against the plain versions, then a train step and an eval batch,
+              launches FPS 3 / KNN 6, ms
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -124,8 +148,8 @@ printed. The last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases env,build,train`` (development only) runs some of the list and
 prints no result line. ``--seed`` (default 0) draws the phase ``probe``'s
-features, the phase ``finetune``'s clouds and the phases ``segmentation``'s
-and ``fewshot``'s clouds and weights.
+features, the phase ``finetune``'s clouds, the phases ``segmentation``'s,
+``fewshot``'s and ``m2ae``'s clouds and weights.
 """
 
 from __future__ import annotations
@@ -1797,13 +1821,11 @@ def _serve_cli(art: str, clouds: np.ndarray, log_path: str) -> np.ndarray:
     return _serve_process(art, log_path, requests)
 
 
-def _finetune_model(dtype=torch.float32, state=None):
+def _finetune_model(dtype=torch.float32):
     from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
 
     model = build_model_from_cfg(cfg_from_yaml_file(FT_CONFIG)["model"], dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(0))
-    if state is not None:
-        model.load_state_dict(state, strict=True)
     return model.to(DEV)
 
 
@@ -1837,6 +1859,48 @@ def _gm3d_pretrain_ckpt(tmp: str, samples: int, batch: int) -> str:
     return os.path.join(pre_out, "ckpt")
 
 
+def _transferred_keys(log_path: str) -> int:
+    """The count on a CLI log's pretrain->finetune transfer line, which must
+    be more than 100 tensors."""
+    with open(log_path) as f:
+        moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", f.read())
+    check(moved is not None and int(moved.group(1)) > 100,
+          f"{log_path}: the transfer log line reports {moved and moved.group(1)} keys")
+    return int(moved.group(1))
+
+
+def _finetune_cli(config: str, pretrained: str, out: str, *flags: str) -> tuple[list, dict, int]:
+    """The finetune CLI from the checkpoint root ``pretrained`` into ``out``,
+    every launch count from 0: (its records, its launches, the tensors it
+    transferred)."""
+    from gm3d_tpu_torch.cli import finetune as finetune_cli
+
+    _fresh_cli_logger("gm3d.finetune")
+    pp.reset_launches()  # the finetune CLI's path: every launch count starts from 0 here
+    records = finetune_cli.main(["--config", config, *flags, "--pretrained", pretrained,
+                                 "--output_dir", out])
+    launches = pp.read_launches()
+    log = _read_log(out)
+    check(log == records, "log.txt differs from the records main() returned")
+    return log, launches, _transferred_keys(os.path.join(out, "finetune.log"))
+
+
+def _served_vs_eval_step(config: str, best: str, model, clouds: np.ndarray, tmp: str,
+                         name: str, export_batch: int) -> float:
+    """``best`` exported with FT_POINTS-point inputs and served in a process of
+    its own; the largest gap between the served logits of ``clouds`` and the
+    eval step's of ``model`` holding the same checkpoint (at most TOL_SERVE)."""
+    from gm3d_tpu_torch.train import finetune as ft
+
+    art = export_model.main(["--config", config, "--ckpt", best, "--input_points",
+                             str(FT_POINTS), "--export_batch", str(export_batch),
+                             "--out", os.path.join(tmp, f"{name}.gm3dx"), "--device", "cuda"])
+    served = _serve_cli(art, clouds, os.path.join(tmp, f"{name}_serve.log"))
+    model.load_state_dict(restore_raw(best)["model"], strict=True)
+    want = ft.make_eval_step(model.to(DEV), FT_NPOINTS)(torch.from_numpy(clouds))
+    return _agree(served, want.cpu().numpy(), atol=TOL_SERVE)
+
+
 def phase_finetune(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     """Pretrain -> finetune -> export -> serve inside the port on the card;
     ``pretrained`` is a GM3D pretrain checkpoint root (``_gm3d_pretrain_ckpt``)."""
@@ -1854,19 +1918,8 @@ def phase_finetune(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     val_batches = -(-FT_TEST // FT_BATCH)
     for recipe in ("legacy", "hpm"):
         out = os.path.join(tmp, f"finetune_{recipe}")
-        _fresh_cli_logger("gm3d.finetune")
-        pp.reset_launches()  # the finetune CLI's path: every launch count starts from 0 here
-        records = finetune_cli.main(["--config", config, "--epochs", str(FT_EPOCHS),
-                                     "--recipe", recipe, "--vote", "--pretrained", pretrained,
-                                     "--output_dir", out])
-        launches = pp.read_launches()
-        log = _read_log(out)
-        check(log == records, "log.txt differs from the records main() returned")
-        with open(os.path.join(out, "finetune.log")) as f:
-            text = f.read()
-        moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
-        check(moved is not None and int(moved.group(1)) > 100,
-              f"{recipe}: the transfer log line reports {moved and moved.group(1)} keys")
+        log, launches, keys = _finetune_cli(config, pretrained, out, "--epochs", str(FT_EPOCHS),
+                                            "--recipe", recipe, "--vote")
         epochs = log[:-1]
         check([r["epoch"] for r in epochs] == list(range(FT_EPOCHS)), log)
         for r in epochs:
@@ -1881,7 +1934,7 @@ def phase_finetune(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
         for k in launches_all:
             launches_all[k] += launches[k]
         runs[recipe] = {
-            "records": log, "launches": launches, "keys_transferred": int(moved.group(1)),
+            "records": log, "launches": launches, "keys_transferred": keys,
             "clouds_per_sec_each_epoch": [(FT_TRAIN // FT_BATCH) * FT_BATCH / max(r["time"], 1e-9)
                                           for r in epochs]}
     res["cli_runs"] = runs
@@ -1956,13 +2009,8 @@ def phase_finetune(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
 
     # ---- export ckpt/best with 8192-point inputs, serve it, POST requests
     best = os.path.join(tmp, "finetune_hpm", "ckpt", "best")
-    art = export_model.main(["--config", config, "--ckpt", best, "--input_points",
-                             str(FT_POINTS), "--export_batch", str(FT_BATCH),
-                             "--out", os.path.join(tmp, "finetuned.gm3dx"), "--device", "cuda"])
-    served = _serve_cli(art, data[:6], os.path.join(tmp, "serve.log"))
-    model = _finetune_model(state=restore_raw(best)["model"])
-    want_logits = ft.make_eval_step(model, FT_NPOINTS)(torch.from_numpy(data[:6])).cpu().numpy()
-    res["served_vs_eval_step_max_abs_err"] = _agree(served, want_logits, atol=TOL_SERVE)
+    res["served_vs_eval_step_max_abs_err"] = _served_vs_eval_step(
+        config, best, _finetune_model(), data[:6], tmp, "finetuned", FT_BATCH)
     res["served_ckpt_step"] = latest_step(best)
     res["tol_serve"] = TOL_SERVE
     res["gpu"] = env["gpu"]
@@ -2146,11 +2194,7 @@ def phase_segmentation(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     launches = pp.read_launches()
     log = _read_log(out)
     check(log == records, "log.txt differs from the records main() returned")
-    with open(os.path.join(out, "seg.log")) as f:
-        text = f.read()
-    moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
-    check(moved is not None and int(moved.group(1)) > 100,
-          f"the transfer log line reports {moved and moved.group(1)} keys")
+    keys = _transferred_keys(os.path.join(out, "seg.log"))
     check([r["epoch"] for r in log] == list(range(SEG_EPOCHS)), log)
     for r in log:
         check(set(r) == SEG_RECORD_KEYS and all(np.isfinite(r[k]) for k in r), r)
@@ -2162,7 +2206,7 @@ def phase_segmentation(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     val_batches = -(-max(SEG_SAMPLES // 4, 32) // SEG_BATCH)
     want = {k: v * (steps + SEG_EPOCHS * val_batches) for k, v in SEG_LAUNCHES_PER_STEP.items()}
     check(launches == want, f"seg CLI launches {launches}, expected {want}")
-    res["cli"] = {"records": log, "launches": launches, "keys_transferred": int(moved.group(1)),
+    res["cli"] = {"records": log, "launches": launches, "keys_transferred": keys,
                   "wall_s": cli_wall,
                   "clouds_per_sec_each_epoch": [(SEG_SAMPLES // SEG_BATCH) * SEG_BATCH
                                                 / max(r["time"], 1e-9) for r in log]}
@@ -2226,18 +2270,14 @@ def phase_fewshot(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     check(len(rec["accs"]) == FS_FOLDS and all(0.0 <= a <= 100.0 for a in rec["accs"]), rec)
     check(rec["mean"] == float(np.mean(rec["accs"])) and rec["std"] == float(np.std(rec["accs"])),
           rec)
-    with open(os.path.join(out, "fewshot.log")) as f:
-        text = f.read()
-    moved = re.search(r"pretrain->finetune transfer: (\d+) leaves overlaid", text)
-    check(moved is not None and int(moved.group(1)) > 100,
-          f"the transfer log line reports {moved and moved.group(1)} keys")
+    keys = _transferred_keys(os.path.join(out, "fewshot.log"))
     # a fold: one step an epoch (50 clouds, B 32, the last partial batch
     # dropped) and four evaluation batches of its 100 test clouds an epoch
     test_batches = -(-FS_WAY * 20 // FS_BATCH)
     per_fold = FS_EPOCHS * (1 + test_batches)
     want = {k: v * per_fold * FS_FOLDS for k, v in FS_LAUNCHES_PER_STEP.items()}
     check(launches == want, f"few-shot launches {launches}, expected {want}")
-    res.update(record=rec, launches=launches, keys_transferred=int(moved.group(1)),
+    res.update(record=rec, launches=launches, keys_transferred=keys,
                wall_s=wall, seconds_per_fold=wall / FS_FOLDS)
 
     # ---- the finetune step at the episode batch: launches and ms
@@ -2266,9 +2306,347 @@ def phase_fewshot(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     emit(res)
     return {"launches": launches}
 
+# the Point-M2AE family: configs/m2ae/config_Point_M2AE.yaml at full width (3 scales of
+# 512 / 256 / 64 groups of 16 / 8 / 8, depths 5 / 5 / 5, widths 96 / 192 / 384, decoder 384 /
+# 192), B 128 clouds of 2,048 points, mask ratio 0.8, drop path 0.1
+M2AE_CONFIG = os.path.join(ROOT, "configs", "m2ae", "config_Point_M2AE.yaml")
+M2AE_FT_CONFIG = os.path.join(ROOT, "configs", "m2ae", "finetune_modelnet_PointM2AE.yaml")
+M2AE_BATCH, M2AE_POINTS, M2AE_CPU_BATCH = 128, 2048, 4
+# launches the JAX code implies (gm3d_tpu/train/pretrain.py:506-560, 643-748,
+# gm3d_tpu/models/m2ae.py): one hierarchy a step (FPS 3, KNN 3) shared by the passes; a
+# PointM2AE forward's k = 1 maps to the coarsest scale (KNN 2) and the decoder's last
+# upsample (KNN 1); the EMA pass stops at the loss-prediction head, whose outputs are all
+# the JAX step keeps of it (KNN 2); no fused patch embed; the fused attention only where
+# the step enters it (off by default), at the unmasked coarsest decoder stage (one block,
+# L 64: a forward in each pass, a backward in the student's)
+M2AE_GM3D_LAUNCHES_PER_STEP = {"fps": 3, "knn": 8, "patch_embed": 0, "attention_fwd": 0,
+                               "attention_bwd": 0}
+M2AE_LAUNCHES_PER_STEP = {"fps": 3, "knn": 6, "patch_embed": 0, "attention_fwd": 0,
+                          "attention_bwd": 0}
+M2AE_FUSED_LAUNCHES_PER_STEP = {"fps": 3, "knn": 8, "patch_embed": 0, "attention_fwd": 2,
+                                "attention_bwd": 1}
+# the unmasked encoder (the SVM probe's pooled features, a classifier forward): the
+# hierarchy only; the classifier's train step and eval batch FPS once more (8,192 points
+# to point_all 1,200 or npoints 1,024) before it
+M2AE_ENCODER_LAUNCHES = {"fps": 3, "knn": 3, "patch_embed": 0, "attention_fwd": 0,
+                         "attention_bwd": 0}
+M2AE_CLS_LAUNCHES_PER_STEP = {**M2AE_ENCODER_LAUNCHES, "fps": 4}
+# the CLI: 4 steps of 128 synthetic clouds, then the SVM probe over 256 + 128 labelled
+# clouds of 2,048 points (npoints: no FPS before the encoder) in batches of 256
+M2AE_CLI_SAMPLES = 4 * M2AE_BATCH
+M2AE_PROBE_BATCHES = sum(-(-max(M2AE_CLI_SAMPLES // d, 64) // (2 * M2AE_BATCH)) for d in (2, 4))
+M2AE_RECORD_KEYS = {"loss", "loss_chfr", "loss_learn", "grad_norm", "epoch", "time", "lr",
+                    "steps", "clouds_per_sec", "val_svm_acc"}
+M2AE_FT_BATCH = 40
+M2AE_SEG_CONFIG = os.path.join(ROOT, "configs", "m2ae", "seg_shapenetpart_PointM2AE.yaml")
+M2AE_SEG_BATCH = 16
+# the seg model: the hierarchy, then a k 3 propagation onto every point a scale
+M2AE_SEG_LAUNCHES = {**M2AE_ENCODER_LAUNCHES, "knn": 6}
+TOL_M2AE_STEP = 2e-3
+
+
+def _m2ae_model(config: str, seed: int, dtype=torch.float32, **overrides):
+    """The config's model (``overrides`` replacing entries of its ``model``
+    section), weights and BatchNorm statistics drawn from ``seed``."""
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+
+    model = build_model_from_cfg({**cfg_from_yaml_file(config)["model"], **overrides},
+                                 dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    pp.randomize_batchnorm_(model, gen)
+    return model
+
+
+def _m2ae_step(model, gm3d: bool, device=DEV, fused: bool = False):
+    from gm3d_tpu_torch.train.optim import build_adamw
+    from gm3d_tpu_torch.train.pretrain import make_m2ae_gm3d_train_step, make_m2ae_train_step
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    optimizer = build_adamw(model.named_parameters(), 1e-4, 0.05,
+                            grad_clip=5.0 if gm3d else None)
+    state = create_train_state(model, optimizer, with_ema=gm3d)
+    if gm3d:
+        step = make_m2ae_gm3d_train_step(model, optimizer, 0.8, use_fused_attention=fused,
+                                         device=device)
+    else:
+        step = make_m2ae_train_step(model, optimizer, 0.8, device=device)
+    return state, step
+
+
+def _m2ae_kernel_checks(pts: torch.Tensor, num_groups, group_sizes, label: str = "",
+                        maps: bool = True, propagate: bool = False,
+                        into: dict | None = None) -> dict:
+    """FPS and KNN at every shape of the hierarchy of ``pts``, on a path's own
+    inputs, against their plain versions; times at each shape. ``maps``: the
+    pretrain model's k = 1 maps too; ``propagate``: the seg model's k = 3
+    propagation of every point onto each scale's centers. Rows are appended
+    to ``into`` where given, their cases prefixed with ``label``."""
+    res = into if into is not None else {"fps": [], "knn": [], "knn_dist_max_abs_err": 0.0}
+    fps_rows, knn_rows = res["fps"], res["knn"]
+
+    def knn_row(name, ref, query, k):
+        name = label + name
+        gd, gi = knn_indices(ref, query, k, return_dist=True)
+        wd, wi = knn_indices_torch(ref, query, k, return_dist=True)
+        torch.cuda.synchronize()
+        check(torch.equal(gi, wi), f"knn {name}: {int((gi != wi).sum())} of {gi.numel()} "
+                                   "indices differ from the plain version")
+        torch.testing.assert_close(gd, wd, rtol=1e-6, atol=0.0)
+        res["knn_dist_max_abs_err"] = max(res["knn_dist_max_abs_err"],
+                                          float((gd - wd).abs().max()))
+        b, n, g = ref.shape[0], ref.shape[1], query.shape[1]
+
+        def library():
+            return torch.topk(torch.cdist(query, ref), k, dim=-1, largest=False, sorted=True)
+
+        ms_bound, by = bound(b * n * 12 + b * g * 12 + b * g * k * 8, 9.0 * b * g * n + 5.0 * b * n)
+        knn_rows.append({"case": name, "shape": [b, n, g, k], "equal": True,
+                         "graph_ms": graph_ms(lambda: knn_indices(ref, query, k)),
+                         "plain_ms": cuda_ms(lambda: knn_indices_torch(ref, query, k), runs=5,
+                                             warmup=1),
+                         "library_graph_ms": graph_ms(library), "bound_ms": ms_bound,
+                         "bound_by": by})
+        return gi
+
+    prev, centers = pts, []
+    for s, (g, k) in enumerate(zip(num_groups, group_sizes)):
+        got = fps_indices(prev, g)
+        want = fps_indices_torch(prev, g)
+        torch.cuda.synchronize()
+        check(torch.equal(got.long(), want.long()), f"fps {label}scale {s}: "
+              f"{int((got != want).sum())} indices differ from the plain version")
+        b, n = prev.shape[0], prev.shape[1]
+        ms_bound, by = bound(b * n * 12 + b * g * 4, 10.0 * b * (g - 1) * n)
+        src = prev
+        fps_rows.append({"case": f"{label}scale {s}", "shape": [b, n, g], "equal": True,
+                         "graph_ms": graph_ms(lambda: fps_indices(src, g)),
+                         "plain_ms": cuda_ms(lambda: fps_indices_torch(src, g), runs=3, warmup=1),
+                         "bound_ms": ms_bound, "bound_by": by})
+        c = fps_gather(prev, got)
+        knn_row(f"scale {s} members", prev, c, k)
+        centers.append(c)
+        prev = c
+    if maps:
+        for s in range(len(centers) - 1):
+            knn_row(f"scale {s} -> coarsest (k 1)", centers[-1], centers[s], 1)
+        knn_row("decoder scale 1 -> 0 (k 1)", centers[1], centers[0], 1)
+    if propagate:
+        for s, c in enumerate(centers):
+            knn_row(f"every point -> scale {s} (k 3)", c, pts, 3)
+    return res
+
+
+def _m2ae_finetune_config(tmp: str, data: str) -> str:
+    import yaml
+
+    with open(M2AE_FT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    for split in ("train", "val", "test"):
+        cfg["dataset"][split]["_base_"]["DATA_PATH"] = data
+    path = os.path.join(tmp, "finetune_modelnet_PointM2AE_local.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_m2ae(env: dict, tmp: str, seed: int) -> dict:
+    """The Point-M2AE family at full width: kernels at its shapes, the bare
+    steps, the step on the card against the CPU, the pretrain CLI, then the
+    classifier's finetune, export and serving."""
+    from gm3d_tpu_torch.config import cfg_from_yaml_file
+    from gm3d_tpu_torch.data.transforms import scale_and_translate
+    from gm3d_tpu_torch.masking import geometric_mask
+    from gm3d_tpu_torch.models import PointM2AEClassifier
+    from gm3d_tpu_torch.train import finetune as ft
+    from gm3d_tpu_torch.train.optim import build_finetune_optimizer
+    from gm3d_tpu_torch.train.pretrain import M2AE_GM3D_METRIC_KEYS
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    res = {"phase": "m2ae", "batch": M2AE_BATCH, "points": M2AE_POINTS}
+    mcfg = cfg_from_yaml_file(M2AE_CONFIG)["model"]
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.standard_normal((M2AE_BATCH, M2AE_POINTS, 3))
+                           .astype(np.float32) * 0.5).to(DEV)
+    t0 = time.perf_counter()
+    res["kernels"] = _m2ae_kernel_checks(pts, mcfg["num_groups"], mcfg["group_sizes"])
+    res["kernels_s"] = time.perf_counter() - t0
+
+    # ---- the bare steps: launches of one step, then 2 warm-up and the median of 5
+    scalars = {"keep_ratio": 0.4, "ema_decay": 0.996}
+    steps = {}
+    for name, gm3d, dtype, fused in (("m2ae_gm3d", True, torch.float32, False),
+                                     ("m2ae", False, torch.float32, False),
+                                     ("m2ae_gm3d_bf16", True, torch.bfloat16, False),
+                                     ("m2ae_gm3d_fused_attention", True, torch.float32, True)):
+        state, step = _m2ae_step(_m2ae_model(M2AE_CONFIG, seed, dtype).to(DEV), gm3d, fused=fused)
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        extra = (scalars,) if gm3d else ()
+        run = (lambda: step(state, pts, gen, *extra)[1])
+        pp.reset_launches()
+        metrics = run()
+        torch.cuda.synchronize()
+        launches = pp.read_launches()
+        want = (M2AE_FUSED_LAUNCHES_PER_STEP if fused else
+                M2AE_GM3D_LAUNCHES_PER_STEP if gm3d else M2AE_LAUNCHES_PER_STEP)
+        check(launches == want, f"{name} launches {launches}, expected {want}")
+        check(all(np.isfinite(float(v)) for v in metrics.values()), metrics)
+        row = {"launches_per_step": launches}
+        if gm3d:
+            # the geometric mask at the step's shapes, on the EMA's predicted loss
+            with torch.no_grad():
+                pred = state.ema(pts, torch.ones((M2AE_BATCH, mcfg["num_groups"][-1]),
+                                                 dtype=torch.bool, device=DEV),
+                                 loss_pred_only=True)["loss_pred"]
+            mask = geometric_mask(gen, pred, step.num_mask, scalars["keep_ratio"])
+            check(mask.sum(dim=1).tolist() == [step.num_mask] * M2AE_BATCH,
+                  "the geometric mask's count")
+            row["masked_coarse_groups_per_row"] = step.num_mask
+        if not fused:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms, wall, losses = _step_ms(run)
+            row.update(step_ms_cuda_events=ms, step_ms_wall=wall,
+                       clouds_per_s=M2AE_BATCH / wall * 1e3, losses=losses,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       peak_extra_bytes=torch.cuda.max_memory_allocated() - base)
+        steps[name] = row
+        del state, step, run
+        torch.cuda.empty_cache()
+    res["steps"] = steps
+
+    # ---- one M2AE + GM3D step at B 4 on the card and on the CPU: same weights, same draws
+    # (stochastic depth off: the two devices' generators draw different masks)
+    cpu_model = _m2ae_model(M2AE_CONFIG, seed + 1, drop_path_rate=0.0)
+    card_model = copy.deepcopy(cpu_model).to(DEV)
+    small = rng.standard_normal((M2AE_CPU_BATCH, M2AE_POINTS, 3)).astype(np.float32) * 0.5
+    draws = {"scale": rng.uniform(2 / 3, 3 / 2, (M2AE_CPU_BATCH, 1, 3)).astype(np.float32),
+             "shift": rng.uniform(-0.2, 0.2, (M2AE_CPU_BATCH, 1, 3)).astype(np.float32),
+             "noise": rng.uniform(0, 1, (M2AE_CPU_BATCH, mcfg["num_groups"][-1]))
+             .astype(np.float32)}
+    both = {}
+    for where, model in (("cuda", card_model), ("cpu", cpu_model)):
+        dev = DEV if where == "cuda" else torch.device("cpu")
+        state, step = _m2ae_step(model, True, device=dev)
+        _, m = step(state, torch.from_numpy(small), None, scalars,
+                    draws={k: torch.from_numpy(v).to(dev) for k, v in draws.items()})
+        both[where] = {k: float(v) for k, v in m.items()}
+    rel = {k: abs(both["cuda"][k] - both["cpu"][k]) / max(abs(both["cpu"][k]), 1e-12)
+           for k in M2AE_GM3D_METRIC_KEYS}
+    check(max(rel.values()) <= TOL_M2AE_STEP, f"card against CPU: {rel}")
+    res["card_vs_cpu"] = {"batch": M2AE_CPU_BATCH, "metrics": both, "rel_diff": rel,
+                          "tol": TOL_M2AE_STEP}
+
+    # ---- the pretrain CLI: one epoch of 4 steps and the SVM probe (the phase's main path)
+    pre_out = os.path.join(tmp, "m2ae_pretrain")
+    _fresh_cli_logger()
+    pp.reset_launches()  # the M2AE CLI's path: every launch count starts from 0 here
+    t0 = time.perf_counter()
+    records = pretrain_cli.main(["--config", M2AE_CONFIG, "--model_family", "m2ae_gm3d",
+                                 "--synthetic", "--synthetic_samples", str(M2AE_CLI_SAMPLES),
+                                 "--batch_size", str(M2AE_BATCH), "--epochs", "1",
+                                 "--output_dir", pre_out])
+    cli_wall = time.perf_counter() - t0
+    launches = pp.read_launches()
+    log = _read_log(pre_out)
+    check(log == records and len(log) == 1, log)
+    check(set(log[0]) == M2AE_RECORD_KEYS, f"log.txt keys {sorted(log[0])}")
+    check(all(np.isfinite(log[0][k]) for k in M2AE_RECORD_KEYS), log[0])
+    check(log[0]["steps"] == M2AE_CLI_SAMPLES // M2AE_BATCH, log[0])
+    check(latest_step(os.path.join(pre_out, "ckpt", "best")) is not None, "no ckpt/best")
+    want = {k: v * (M2AE_CLI_SAMPLES // M2AE_BATCH) + M2AE_ENCODER_LAUNCHES[k] * M2AE_PROBE_BATCHES
+            for k, v in M2AE_GM3D_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"M2AE CLI launches {launches}, expected {want}")
+    res["cli"] = {"records": log, "launches": launches, "wall_s": cli_wall,
+                  "cli_over_step": log[0]["clouds_per_sec"] / steps["m2ae_gm3d"]["clouds_per_s"]}
+
+    # ---- Part B: finetune the classifier from that checkpoint, export, serve
+    data = os.path.join(tmp, "modelnet40")
+    if not os.path.isdir(data):
+        _modelnet_dir(data, seed)
+    config = _m2ae_finetune_config(tmp, data)
+    out = os.path.join(tmp, "m2ae_finetune")
+    log, ft_launches, keys = _finetune_cli(config, os.path.join(pre_out, "ckpt"), out,
+                                           "--epochs", "1")
+    check([r["epoch"] for r in log] == [0], log)
+    check(FT_RECORD_KEYS <= set(log[0]) and all(np.isfinite(log[0][k]) for k in log[0]), log[0])
+    with open(os.path.join(out, "finetune.log")) as f:
+        check("recipe hpm: " in f.read(), "Point-M2AE finetunes with the hpm recipe")
+    ft_steps = FT_TRAIN // M2AE_FT_BATCH
+    ft_evals = -(-FT_TEST // M2AE_FT_BATCH)
+    want = {k: v * (ft_steps + ft_evals) for k, v in M2AE_CLS_LAUNCHES_PER_STEP.items()}
+    check(ft_launches == want, f"M2AE finetune launches {ft_launches}, expected {want}")
+    with open(os.path.join(data, "modelnet40_test_8192pts_fps.dat"), "rb") as f:
+        clouds = pickle.load(f)[0][:8]
+    classifier = _m2ae_model(config, seed)
+    check(isinstance(classifier, PointM2AEClassifier), type(classifier))
+    res["finetune"] = {
+        "records": log, "launches": ft_launches, "keys_transferred": keys,
+        "served_vs_eval_step_max_abs_err": _served_vs_eval_step(
+            config, os.path.join(out, "ckpt", "best"), classifier, clouds[:6], tmp, "m2ae_cls", 8),
+        "tol_serve": TOL_SERVE}
+
+    # the classifier's bare train step at the finetune batch (8,192-point clouds): FPS to
+    # point_all and the hierarchy of the subsampled clouds, on the step's own inputs and
+    # draws, against their plain versions; then its launches and ms
+    optimizer = build_finetune_optimizer(classifier.named_parameters(), 1e-4)
+    cstate = create_train_state(classifier, optimizer)
+    cstep = ft.make_finetune_train_step(classifier, optimizer, FT_NPOINTS)
+    cpts = torch.from_numpy(clouds).repeat(M2AE_FT_BATCH // 8, 1, 1).to(DEV)
+    labels = torch.arange(M2AE_FT_BATCH, device=DEV) % 40
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    draws = ft.finetune_draws(gen, classifier, M2AE_FT_BATCH, FT_POINTS, FT_NPOINTS)
+    got = fps_indices(cpts, FT_POINT_ALL)
+    want_idx = fps_indices_torch(cpts, FT_POINT_ALL)
+    torch.cuda.synchronize()
+    check(torch.equal(got.long(), want_idx.long()), f"fps 8192->1200 at B {M2AE_FT_BATCH} "
+          f"differs from its plain version at {int((got != want_idx).sum())}")
+    sub = ft.subsample(None, fps_gather(cpts, got), FT_NPOINTS, noise=draws["noise"])
+    sub = scale_and_translate(None, sub, scale=draws["scale"], shift=draws["shift"])
+    _m2ae_kernel_checks(sub, classifier.num_groups, classifier.encoder.group_sizes,
+                        label="classifier ", maps=False, into=res["kernels"])
+    pp.reset_launches()
+    cstep(cstate, cpts, labels, gen, draws=draws)
+    torch.cuda.synchronize()
+    check(pp.read_launches() == M2AE_CLS_LAUNCHES_PER_STEP, pp.read_launches())
+    ms, wall, losses = _step_ms(lambda: cstep(cstate, cpts, labels, gen)[1])
+    res["finetune"]["step"] = {"batch": M2AE_FT_BATCH, "step_ms_cuda_events": ms,
+                               "step_ms_wall": wall, "clouds_per_s": M2AE_FT_BATCH / wall * 1e3}
+
+    # ---- the seg model (seg_shapenetpart_PointM2AE.yaml, B 16 x 2,048): its hierarchy and
+    # the k 3 propagation of every point onto each scale's centers against their plain
+    # versions on the eval batch's inputs; a train step and an eval batch, launches and ms
+    from gm3d_tpu_torch.train import segmentation as seg
+
+    seg_model = _m2ae_model(M2AE_SEG_CONFIG, seed).to(DEV)
+    seg_opt = build_finetune_optimizer(seg_model.named_parameters(), 1e-4)
+    seg_state = create_train_state(seg_model, seg_opt)
+    seg_step = seg.make_seg_train_step(seg_model, seg_opt)
+    seg_eval = seg.make_seg_eval_step(seg_model)
+    spts = pts[:M2AE_SEG_BATCH]
+    _m2ae_kernel_checks(spts, seg_model.num_groups, seg_model.encoder.group_sizes,
+                        label="seg ", maps=False, propagate=True, into=res["kernels"])
+    cls = torch.arange(M2AE_SEG_BATCH, device=DEV) % 16
+    parts = torch.randint(0, 50, (M2AE_SEG_BATCH, M2AE_POINTS), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(seed))
+    seg_res = {}
+    for name, fn in (("train_step", lambda: seg_step(seg_state, spts, cls, parts, gen)[1]),
+                     ("eval_batch", lambda: {"loss": seg_eval(spts, cls).float().mean()})):
+        pp.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = pp.read_launches()
+        check(got == M2AE_SEG_LAUNCHES, f"seg {name} launches {got}, expected {M2AE_SEG_LAUNCHES}")
+        ms, wall, _ = _step_ms(fn)
+        seg_res[name] = {"launches": got, "ms_cuda_events": ms, "ms_wall": wall}
+    res["segmentation"] = {"batch": M2AE_SEG_BATCH, **seg_res}
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": launches, "launches_finetune": ft_launches, "kernels": res["kernels"]}
+
 
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume", "probe", "step_options", "finetune", "segmentation", "fewshot")
+          "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae")
 
 
 def main() -> None:
@@ -2306,7 +2684,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         options = (phase_step_options(env, trained, tmp) if "step_options" in phases
                    else None)
-    tuned = segmented = few = None
+    tuned = segmented = few = m2ae = None
     with tempfile.TemporaryDirectory() as tmp:
         # one short epoch of the port's GM3D pretrain CLI: the weights of all three
         if {"finetune", "segmentation", "fewshot"} & set(phases):
@@ -2317,6 +2695,9 @@ def main() -> None:
             segmented = phase_segmentation(env, tmp, pretrained, cli_args.seed)
         if "fewshot" in phases:
             few = phase_fewshot(env, tmp, pretrained, cli_args.seed)
+        if "m2ae" in phases:
+            # on phase finetune's ModelNet directory where it ran
+            m2ae = phase_m2ae(env, tmp, cli_args.seed)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -2338,9 +2719,15 @@ def main() -> None:
         # the seg CLI's and the few-shot CLI's runs: FPS and KNN only
         kern["launches_segmentation"] = segmented["launches"][kern["name"]]
         kern["launches_fewshot"] = few["launches"][kern["name"]]
+        # the Point-M2AE pretrain CLI's run and its classifier's finetune: FPS and KNN only
+        kern["launches_m2ae"] = m2ae["launches"][kern["name"]]
+        kern["launches_m2ae_finetune"] = m2ae["launches_finetune"][kern["name"]]
         if kern["name"] == "knn":
             # the feature propagation's shape: 2,048 queries on 128 references, k 3
             kern["seg_propagation"] = segmented["knn_propagation"]
+        if kern["name"] in ("fps", "knn"):
+            # each shape of the Point-M2AE hierarchy and its k = 1 maps, B 128
+            kern["m2ae_shapes"] = m2ae["kernels"][kern["name"]]
         check(kern["launches"] > 0 and kern["launches_pretrain_cli"] > 0,
               f"{kern['name']} was never launched on its path")
     emit({"kernels": timed})

@@ -12,6 +12,7 @@ Weight-layout rules:
   flax Dense kernel (in, out)  -> torch Conv1d weight (out, in, 1)   [T + axis]
   flax scale/bias              -> torch LN/BN weight/bias
   flax batch_stats mean/var    -> torch BN running_mean/running_var
+  flax raw parameter           -> torch parameter of the same shape ("param")
 """
 
 from __future__ import annotations
@@ -44,15 +45,17 @@ _COMMON_ENCODER = {
 }
 
 
+def _stack(torch_name: str, flax_name: str) -> Dict[str, Tuple[str, str]]:
+    """A stack of blocks: ``{torch}.blocks.{i}`` is ``{flax}/block{i}``."""
+    return {f"{torch_name}.blocks.{{i}}.{leaf}":
+            (f"{flax_name}/block{{i}}/{leaf.replace('.', '/')}", kind)
+            for leaf, kind in (("norm1", "ln"), ("norm2", "ln"), ("attn.qkv", "linear"),
+                               ("attn.proj", "linear"), ("mlp.fc1", "linear"),
+                               ("mlp.fc2", "linear"))}
+
+
 def _decoder(name: str) -> Dict[str, Tuple[str, str]]:
-    table = {
-        f"{name}.blocks.{{i}}.{leaf}": (f"{name}/block{{i}}/{leaf.replace('.', '/')}", kind)
-        for leaf, kind in (("norm1", "ln"), ("norm2", "ln"), ("attn.qkv", "linear"),
-                           ("attn.proj", "linear"), ("mlp.fc1", "linear"),
-                           ("mlp.fc2", "linear"))
-    }
-    table[f"{name}.norm"] = (f"{name}/norm", "ln")
-    return table
+    return {**_stack(name, name), f"{name}.norm": (f"{name}/norm", "ln")}
 
 
 def _under(prefix: str, table: Mapping[str, Tuple[str, str]]) -> Dict[str, Tuple[str, str]]:
@@ -120,6 +123,66 @@ GM3D_STUDENT_MAP = {
 }
 
 
+# Point-M2AE. The reference ships no torch code for this family, so there are
+# no reference names to follow: the torch keys are the port's own module names
+# (``models/m2ae.py``), which keep the flax ones where torch allows
+# (``stage{s}``, ``merge{s}``, ``dec_up{i}`` ...); the patch embed, the
+# positional embeddings, the blocks and the classifier's head are the port's
+# shared modules and keep their torch spellings.
+_PATCH_EMBED = {k[len("encoder."):]: (v[len("encoder/"):], kind)
+                for k, (v, kind) in _COMMON_ENCODER.items() if k.startswith("encoder.")}
+
+
+def _pos(torch_name: str, flax_name: str) -> Dict[str, Tuple[str, str]]:
+    return {f"{torch_name}.0": (f"{flax_name}/fc1", "linear"),
+            f"{torch_name}.2": (f"{flax_name}/fc2", "linear")}
+
+
+M2AE_SCALES, M2AE_DECODER_STAGES = 3, 2  # every Point-M2AE config's
+
+
+def _m2ae_encoder() -> Dict[str, Tuple[str, str]]:
+    """The ``M2AEEncoder`` under ``encoder``."""
+    table = _under("encoder", {f"patch_embed.{k}": (f"patch_embed/{v}", kind)
+                               for k, (v, kind) in _PATCH_EMBED.items()})
+    for s in range(M2AE_SCALES):
+        table.update(_stack(f"encoder.stage{s}", f"encoder/stage{s}"))
+        table.update(_pos(f"encoder.pos{s}", f"encoder/pos{s}"))
+        table[f"encoder.mask_feat{s}"] = (f"encoder/mask_feat{s}", "param")
+        if s:
+            table[f"encoder.merge{s}.proj"] = (f"encoder/merge{s}/proj", "linear")
+    return table
+
+
+def _m2ae_pretrain() -> Dict[str, Tuple[str, str]]:
+    """``PointM2AE``: the encoder, the decoder (a stage, a positional embedding
+    and a projection a stage; an up-block stack a stage), the heads."""
+    table = _m2ae_encoder()
+    for i in range(M2AE_DECODER_STAGES):
+        table.update(_stack(f"dec_stage{i}", f"dec_stage{i}"))
+        table.update(_stack(f"dec_up{i}", f"dec_up{i}"))
+        table.update(_pos(f"dec_pos{i}", f"dec_pos{i}"))
+        table[f"dec_proj{i}"] = (f"dec_proj{i}", "linear")
+    table.update({"rec_head": ("rec_head", "linear"), "lp_fc1": ("lp_fc1", "linear"),
+                  "lp_bn": ("lp_bn", "bn"), "lp_fc2": ("lp_fc2", "linear")})
+    return table
+
+
+_M2AE_NORMS = {f"norm{s}": (f"norm{s}", "ln") for s in range(M2AE_SCALES)}
+M2AE_MAP = _m2ae_pretrain()
+# the classifier: the encoder, a LayerNorm a scale, the head
+M2AE_CLASSIFIER_MAP = {**_m2ae_encoder(), **_M2AE_NORMS,
+                       "cls_head_finetune.0": ("head_fc1", "linear"),
+                       "cls_head_finetune.1": ("head_bn1", "bn"),
+                       "cls_head_finetune.4": ("head_fc2", "linear"),
+                       "cls_head_finetune.5": ("head_bn2", "bn"),
+                       "cls_head_finetune.8": ("head_out", "linear")}
+# the seg model: the encoder, a LayerNorm a scale, PointMAESeg's head
+M2AE_SEG_MAP = {**_m2ae_encoder(), **_M2AE_NORMS,
+                **{k: v for k, v in POINT_MAE_SEG_MAP.items()
+                   if k.startswith(("label_embed", "prop_proj", "head_"))}}
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
@@ -159,6 +222,10 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     for path, value in _flatten(variables.get("params", {})).items():
         if "/" not in path:
             put(path, value)
+            continue
+        hit = _lookup(path, table)
+        if hit is not None and hit[1] == "param":
+            put(hit[0], value)
             continue
         module, leaf = path.rsplit("/", 1)
         hit = _lookup(module, table)

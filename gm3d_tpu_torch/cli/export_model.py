@@ -4,9 +4,19 @@
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/finetune_modelnet.yaml \
       --ckpt experiments/ft/ckpt/best --out model.gm3dx --export_batch 128
 
-  # frozen featurizer (pretrain config + checkpoint, SVM/kNN feature contract)
+  # frozen featurizer (pretrain config + checkpoint, SVM/kNN feature contract);
+  # --model_family m2ae pools the Point-M2AE's coarsest tokens
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/config.yaml \
       --ckpt pretrained.pth --mode features --out feats.gm3dx
+  python -m gm3d_tpu_torch.cli.export_model --config configs/m2ae/config_Point_M2AE.yaml \
+      --ckpt experiments/m2ae/ckpt --mode features --model_family m2ae --out m2ae.gm3dx
+
+  # a Point-M2AE classifier: its finetune config (Point_M2AE_ModelNet40 /
+  # Point_M2AE_ScanObjectNN) and the finetune CLI's best checkpoint (its seg
+  # model likewise: seg_shapenetpart_PointM2AE.yaml, --mode segmentation)
+  python -m gm3d_tpu_torch.cli.export_model \
+      --config configs/m2ae/finetune_modelnet_PointM2AE.yaml \
+      --ckpt experiments/m2ae_ft/ckpt/best --out m2ae_cls.gm3dx
 
   # part segmentation (seg config + the seg CLI's best checkpoint): inputs of
   # exactly npoints points and each cloud's category; the manifest carries
@@ -57,7 +67,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--out", required=True, help="output .gm3dx path")
     p.add_argument("--mode", choices=["classifier", "features", "segmentation"],
                    default="classifier")
-    p.add_argument("--model_family", choices=["gm3d", "pointmae"], default="gm3d",
+    p.add_argument("--model_family", choices=["gm3d", "pointmae", "m2ae"], default="gm3d",
                    help="pretrain family for --mode features")
     p.add_argument("--export_batch", type=int, default=128,
                    help="static batch of the artifact (requests are "
@@ -75,9 +85,14 @@ def _model_cfg(args, cfg) -> tuple[str, dict]:
         # the student's hyperparameters are the reference's hard-coded class
         # values, whatever the config's model section says
         return "GM3DStudent", {"NAME": "GM3D_Student"}
+    name = cfg["model"]["NAME"]
     want = {"classifier": "PointTransformer", "segmentation": "PointTransformerSeg",
-            "features": "Point_MAE"}[args.mode]
-    if cfg["model"]["NAME"] != want:
+            "features": "Point_M2AE" if args.model_family == "m2ae" else "Point_MAE"}[args.mode]
+    if (args.mode == "classifier" and name in ("Point_M2AE_ModelNet40",
+                                               "Point_M2AE_ScanObjectNN")
+            or args.mode == "segmentation" and name == "Point_M2AE_SEG"):
+        want = name
+    if name != want:
         raise ValueError(
             f"--mode {args.mode} (--model_family {args.model_family}) exports a "
             f"{want} config, got model {cfg['model']['NAME']!r}")

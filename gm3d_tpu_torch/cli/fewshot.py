@@ -25,8 +25,9 @@ generators, and the flag is accepted for both values (training the folds
 together on the card is ``ROADMAP.md`` Queue 1 item 4c).
 
 Runs on the GPU unless ``--device cpu`` is given; ``--batch_floor`` is a
-no-op; ``--num_devices`` above 1 raises (item 8), and so does a Point-M2AE
-config (item 3).
+no-op; ``--num_devices`` above 1 raises (item 8). A Point-M2AE config
+(``configs/m2ae/fewshot-Point-M2AE.yaml``: label smoothing 0.3) trains the
+hierarchical classifier.
 """
 
 from __future__ import annotations
@@ -92,12 +93,9 @@ def make_fold_data(args, cfg, fold: int, npoints: int):
 
 
 def build_model(args, cfg, fold: int, dtype: torch.dtype):
-    """The config's ``PointTransformer`` with ``way`` classes, weights drawn
-    from a generator seeded ``fold`` (the JAX CLI's init key)."""
-    if cfg["model"]["NAME"].startswith("Point_M2AE"):
-        raise NotImplementedError(
-            f"few-shot with {cfg['model']['NAME']} is not ported to gm3d_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 3)")
+    """The config's classifier (``PointTransformer``, or ``PointM2AEClassifier``
+    of ``fewshot-Point-M2AE.yaml``) with ``way`` classes, weights drawn from a
+    generator seeded ``fold`` (the JAX CLI's init key)."""
     model = build_model_from_cfg({**cfg["model"], "cls_dim": args.way}, dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(fold))
     return model

@@ -3,7 +3,10 @@
 Port of ``gm3d_tpu/cli/finetune.py`` (reference ``main_finetune.py``): loads a
 pretrain checkpoint (the port's pretrain CLI's ``<output_dir>/ckpt``, GM3D or
 Point-MAE, or a reference ``.pth`` with ``--torch_ckpt``) into
-``PointTransformer``, trains with one of the two published recipes, validates
+``PointTransformer``, or a Point-M2AE pretrain into the config's
+``PointM2AEClassifier`` (``Point_M2AE_ModelNet40`` / ``_ScanObjectNN``, its
+``encoder`` overlaid; every published Point-M2AE finetune is the hpm recipe),
+trains with one of the two published recipes, validates
 every ``--val_freq`` epochs and, with ``--vote``, runs the 10-vote evaluation
 at the end::
 
@@ -23,7 +26,7 @@ Runs on the GPU unless ``--device cpu`` is given. ``--steps_per_dispatch``
 groups the steps as the JAX CLI does but runs them one by one (eager
 PyTorch has no dispatch to amortise); ``--batch_floor`` is a no-op (a TPU
 compiler workaround); ``--num_devices`` above 1 raises (``ROADMAP.md``
-Queue 1 item 8), and so does a Point-M2AE config (item 3).
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -196,12 +199,8 @@ def evaluate_vote(loader, vote_step, generator: torch.Generator) -> float:
 
 
 def build_model(args, cfg, dtype: torch.dtype):
-    """The config's ``PointTransformer``, weights drawn from a generator
-    seeded ``--seed`` (the JAX CLI's init key)."""
-    if cfg["model"]["NAME"].startswith("Point_M2AE"):
-        raise NotImplementedError(
-            f"finetuning {cfg['model']['NAME']} is not ported to gm3d_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 3)")
+    """The config's model (``PointTransformer`` or ``PointM2AEClassifier``),
+    weights drawn from a generator seeded ``--seed`` (the JAX CLI's init key)."""
     model = build_model_from_cfg(cfg["model"], dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     return model

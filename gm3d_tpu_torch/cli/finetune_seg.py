@@ -24,8 +24,8 @@ what ``cli/export_model.py --mode segmentation --ckpt`` exports for serving.
 Runs on the GPU unless ``--device cpu`` is given. ``--steps_per_dispatch``
 groups the steps as the JAX CLI does but runs them one by one;
 ``--batch_floor`` is a no-op; ``--native_loader`` (``ROADMAP.md`` Queue 1
-item 10) and ``--num_devices`` above 1 (item 8) raise, and so does a
-Point-M2AE config (item 3).
+item 10) and ``--num_devices`` above 1 (item 8) raise. A Point-M2AE config
+(``configs/m2ae/seg_shapenetpart_PointM2AE.yaml``) trains ``PointM2AESeg``.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_model(args, cfg, dtype: torch.dtype):
-    """The config's ``PointMAESeg``, weights drawn from a generator seeded
-    ``--seed`` (the JAX CLI's init key)."""
+    """The config's seg model (``PointMAESeg`` or ``PointM2AESeg``), weights
+    drawn from a generator seeded ``--seed`` (the JAX CLI's init key)."""
     model = build_model_from_cfg(cfg["model"], dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     return model

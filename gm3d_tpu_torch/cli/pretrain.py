@@ -1,10 +1,12 @@
-"""GM3D and Point-MAE pretraining from the command line.
+"""GM3D, Point-MAE and Point-M2AE pretraining from the command line.
 
 Port of ``gm3d_tpu/cli/pretrain.py`` for ``--model_family gm3d`` (shared
 optimizer or ``--no-shared_opt``, ``--learn_feature_loss`` ``dino``, ``ema``
-or ``none``, ``--student_variant svm`` or ``legacy``, fp32 or ``--bf16``) and
+or ``none``, ``--student_variant svm`` or ``legacy``, fp32 or ``--bf16``),
 ``--model_family pointmae`` (the teacher's pretrain, the legacy runner's
-recipe), with ``--accum_iter`` micro-batches an update, on synthetic clouds
+recipe) and ``--model_family m2ae`` / ``m2ae_gm3d`` (the config's
+``Point_M2AE``; the GM3D variant clips the global norm at 5 and keeps an EMA),
+with ``--accum_iter`` micro-batches an update, on synthetic clouds
 or on-disk ShapeNet-55. Same flags, same log
 files (``pretrain.log``, the JSON-lines ``log.txt``, ``tfboard/``) and the
 same keys in them; the same checkpoints in ``<output_dir>/ckpt``
@@ -27,6 +29,11 @@ logs ``loss_cls`` and ``acc_cls``. The teacher, then GM3D::
       --model_family pointmae --synthetic --epochs 2 --output_dir /tmp/teacher
   python -m gm3d_tpu_torch.cli.pretrain --config configs/pointmae/config.yaml \\
       --synthetic --epochs 2 --teacher_ckpt /tmp/teacher/ckpt --output_dir /tmp/run
+  python -m gm3d_tpu_torch.cli.pretrain --config configs/m2ae/config_Point_M2AE.yaml \\
+      --model_family m2ae_gm3d --synthetic --epochs 2 --output_dir /tmp/m2ae
+
+Point-M2AE's SVM probe pools every scale (``pooled_features``), its
+``--classification`` probe reads the coarsest tokens (``encode_features``).
 
 Runs on the GPU unless ``--device cpu`` is given. Every flag of the JAX CLI
 is accepted; those whose path is not ported yet raise ``NotImplementedError``
@@ -81,9 +88,13 @@ from gm3d_tpu_torch.train.optim import (
     set_scheduled_lr,
 )
 from gm3d_tpu_torch.train.pretrain import (
+    M2AE_GM3D_METRIC_KEYS,
+    M2AE_METRIC_KEYS,
     METRIC_KEYS,
     POINTMAE_METRIC_KEYS,
     make_gm3d_train_step,
+    make_m2ae_gm3d_train_step,
+    make_m2ae_train_step,
     make_pointmae_train_step,
     make_probe_step,
     probe_draws,
@@ -162,8 +173,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 # --num_devices above 1 (item 8) raises in setup_mesh, --native_loader (item 10) in
 # make_train_loader
 NOT_PORTED = (
-    (lambda a: a.model_family in ("m2ae", "m2ae_gm3d"), "--model_family m2ae / m2ae_gm3d",
-     "3"),
     (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
     (lambda a: a.quantize_ema, "--quantize_ema", "9"),
 )
@@ -227,6 +236,14 @@ def build_teacher(args, cfg, dtype: torch.dtype):
 def build_pointmae(args, cfg, dtype: torch.dtype):
     """The Point-MAE of the config's ``model`` section, for the teacher's
     pretrain; weights drawn from a generator seeded 1 (the JAX CLI's init key)."""
+    model = build_model_from_cfg(cfg["model"], dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    return model
+
+
+def build_m2ae(args, cfg, dtype: torch.dtype):
+    """The Point-M2AE of the config's ``model`` section; weights drawn from a
+    generator seeded 1 (the JAX CLI's init key)."""
     model = build_model_from_cfg(cfg["model"], dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(1))
     return model
@@ -364,6 +381,28 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         def run_step(state, pts, generator, scalars):
             draws = step_draws(generator, pts.shape[0], student.num_group)
             return gm3d_step(state, pts, generator, scalars, draws=draws)
+    elif args.model_family in ("m2ae", "m2ae_gm3d"):
+        gm3d = args.model_family == "m2ae_gm3d"
+        model = build_m2ae(args, cfg, dtype).to(dev)
+        # the GM3D engine clips the global norm at 5 on every step (NativeScaler's
+        # default); the plain Point-M2AE recipe does not clip
+        optimizer = build_adamw(model.named_parameters(), sched(0), wd,
+                                grad_clip=5.0 if gm3d else None, accum_steps=args.accum_iter)
+        state = create_train_state(model, optimizer, with_ema=gm3d)
+        mask_ratio = cfg["model"].get("mask_ratio", 0.8)
+        if gm3d:
+            m2ae_step = make_m2ae_gm3d_train_step(model, optimizer, mask_ratio, args.relative,
+                                                  device=dev)
+            keys = M2AE_GM3D_METRIC_KEYS
+        else:
+            m2ae_step = make_m2ae_train_step(model, optimizer, mask_ratio, device=dev)
+            keys = M2AE_METRIC_KEYS
+        feat_model = model
+
+        def run_step(state, pts, generator, scalars):
+            draws = step_draws(generator, pts.shape[0], model.num_groups[-1])
+            extra = (scalars,) if gm3d else ()
+            return m2ae_step(state, pts, generator, *extra, draws=draws)
     else:  # pointmae: the legacy runner's recipe, which made the published teacher
         scheduler = cfg.get("scheduler", {}).get("kwargs", {})
         sched = legacy_cosine_epoch_schedule(
@@ -541,7 +580,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         for epoch in range(start_epoch, epochs):
             meter = MetricLogger()
             t0 = time.time()
-            scalars = epoch_scalars(args, epoch, epochs) if args.model_family == "gm3d" else None
+            scalars = (epoch_scalars(args, epoch, epochs)
+                       if args.model_family in ("gm3d", "m2ae_gm3d") else None)
             probe_iter = iter(svm_train) if probe_step is not None else None
             pending_pmetrics = None
 

@@ -2,8 +2,10 @@
 schemas under ``configs/`` onto the modules of this package.
 
 Port of ``gm3d_tpu/config/registry.py`` for the models ported so far:
-``PointTransformer``, ``PointTransformerSeg``, ``Point_MAE`` and the GM3D
-student; ``Point_M2AE_SEG`` raises ``NotImplementedError``. The dataset readers
+``PointTransformer``, ``PointTransformerSeg``, ``Point_MAE``, the GM3D
+student, ``Point_M2AE`` and its classifiers ``Point_M2AE_ModelNet40`` /
+``Point_M2AE_ScanObjectNN`` and its part-segmentation model
+``Point_M2AE_SEG``. The dataset readers
 of ``data/datasets.py`` register in ``DATASETS`` under the reference ``NAME``."""
 
 from __future__ import annotations
@@ -100,12 +102,57 @@ def build_seg_model(cfg, dtype: torch.dtype = torch.float32):
     )
 
 
+def _m2ae_encoder_kwargs(cfg) -> dict:
+    """``M2AEEncoder``'s arguments out of a Point-M2AE ``model`` section."""
+    return dict(num_groups=tuple(cfg["num_groups"]), group_sizes=tuple(cfg["group_sizes"]),
+                encoder_depths=tuple(cfg["encoder_depths"]),
+                encoder_dims=tuple(cfg["encoder_dims"]),
+                local_radius=tuple(cfg["local_radius"]), num_heads=cfg["num_heads"],
+                drop_path_rate=cfg["drop_path_rate"])
+
+
+@MODELS.register_module("Point_M2AE")
+def build_point_m2ae(cfg, dtype: torch.dtype = torch.float32):
+    """Config schema: the ``model`` section of ``configs/m2ae/config_Point_M2AE.yaml``."""
+    from gm3d_tpu_torch.models import PointM2AE
+
+    return PointM2AE(
+        decoder_depths=tuple(cfg["decoder_depths"]),
+        decoder_dims=tuple(cfg["decoder_dims"]),
+        decoder_up_blocks=tuple(cfg.get("decoder_up_blocks", (1, 1))),
+        mask_ratio=cfg.get("mask_ratio", 0.8),
+        svm_scales=cfg.get("svm_scales", "all"),
+        dtype=dtype,
+        **_m2ae_encoder_kwargs(cfg),
+    )
+
+
+def _build_m2ae_classifier(cfg, cls_dim: int, dtype: torch.dtype):
+    from gm3d_tpu_torch.models import PointM2AEClassifier
+
+    return PointM2AEClassifier(cls_dim=cls_dim, dtype=dtype, **_m2ae_encoder_kwargs(cfg))
+
+
+@MODELS.register_module("Point_M2AE_ModelNet40")
+def build_m2ae_modelnet(cfg, dtype: torch.dtype = torch.float32):
+    """Config schema: the ``model`` section of ``configs/m2ae/finetune_modelnet_PointM2AE.yaml``."""
+    return _build_m2ae_classifier(cfg, cfg.get("cls_dim", 40), dtype)
+
+
+@MODELS.register_module("Point_M2AE_ScanObjectNN")
+def build_m2ae_scanobj(cfg, dtype: torch.dtype = torch.float32):
+    """Config schema: the ``model`` section of the ScanObjectNN Point-M2AE configs."""
+    return _build_m2ae_classifier(cfg, cfg.get("cls_dim", 15), dtype)
+
+
 @MODELS.register_module("Point_M2AE_SEG")
 def build_m2ae_seg_model(cfg, dtype: torch.dtype = torch.float32):
-    """ShapeNetPart seg on the Point-M2AE encoder: not ported yet."""
-    raise NotImplementedError(
-        "Point_M2AE_SEG (part segmentation on the Point-M2AE encoder) is not ported "
-        "to gm3d_tpu_torch yet (ROADMAP.md Queue 1 item 3)")
+    """ShapeNetPart seg on the Point-M2AE encoder; config schema: the ``model``
+    section of ``configs/m2ae/seg_shapenetpart_PointM2AE.yaml``."""
+    from gm3d_tpu_torch.models import PointM2AESeg
+
+    return PointM2AESeg(num_classes=cfg.get("num_classes", 16), num_parts=cfg.get("cls_dim", 50),
+                        dtype=dtype, **_m2ae_encoder_kwargs(cfg))
 
 
 @MODELS.register_module("GM3D_Student")

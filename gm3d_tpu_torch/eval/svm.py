@@ -7,7 +7,8 @@ first and scored on the second. The JAX package fits sklearn's ``SVC`` on the
 host; here the fit is the port's own (``eval/linear_svc.py``), in float64 on
 the device where the features lie, so the features never leave the card.
 
-The encoder's grouping launches the FPS and KNN kernels. As in the JAX
+The encoder's grouping launches the FPS and KNN kernels (Point-M2AE's
+hierarchy three of each). As in the JAX
 probe, the encoder runs outside ``fused_attention_scope`` and its patch embed
 as the module does, in eval mode, without gradient.
 """
@@ -29,17 +30,14 @@ SVM_C = 0.01
 def make_feature_fn(model: nn.Module, npoints: int = 1024,
                     batch_floor: int = 0) -> Callable[[torch.Tensor], torch.Tensor]:
     """``points (B, N, 3) -> pooled features (B, D)``: FPS down to ``npoints``
-    only where a cloud has more, then ``model.encode_features`` in eval mode
-    without gradient (the model's train / eval mode is put back after).
+    only where a cloud has more, then, in eval mode without gradient (the
+    model's train / eval mode is put back after), the model's own pooling
+    where it has one (``pooled_features``: Point-M2AE, ``mean + max`` a scale,
+    concatenated), else ``mean + max`` over ``model.encode_features``.
     ``batch_floor`` is accepted and does nothing: the JAX package tiles small
-    batches up to it to work around a TPU compiler bug. A model that pools its
-    own features (``pooled_features``: Point-M2AE, one pool a scale) raises
-    until that model is ported."""
+    batches up to it to work around a TPU compiler bug."""
     del batch_floor
-    if getattr(model, "pooled_features", None) is not None:
-        raise NotImplementedError(
-            "per-scale pooling (pooled_features, Point-M2AE) waits for the port of "
-            "models/m2ae.py (ROADMAP.md Queue 1 item 3)")
+    pooled = getattr(model, "pooled_features", None)
 
     @torch.no_grad()
     def feature_fn(pts: torch.Tensor) -> torch.Tensor:
@@ -47,6 +45,8 @@ def make_feature_fn(model: nn.Module, npoints: int = 1024,
         training = model.training
         model.eval()
         try:
+            if pooled is not None:
+                return pooled(x)
             tok = model.encode_features(x)
         finally:
             model.train(training)

@@ -30,16 +30,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gm3d_tpu_torch.ops.fused_attention import fused_attention_trainable
+from gm3d_tpu_torch.ops.fused_attention import fused_attention_trainable, kernel_fits
 
 # reference init: trunc_normal(std=0.02) for Linear/Conv weights, zero bias
 INIT_STD = 0.02
 
 # Call-time switch (the train step's fast path): inside
-# ``fused_attention_scope`` mask-free attention goes through
+# ``fused_attention_scope`` mask-free attention whose sequence the kernels
+# hold (``ops.fused_attention.kernel_fits``: at most 64 tokens) goes through
 # ``ops.fused_attention`` (the CUDA kernels for a CUDA tensor, the plain
-# version for a CPU tensor). Outside it, as on the serving path, ``Attention``
-# is plain tensor code.
+# version for a CPU tensor). A masked or longer site stays plain, as the JAX
+# package's ``_fused_block_batch`` declines it. Outside the scope, as on the
+# serving path, ``Attention`` is plain tensor code.
 # A context variable: a train step in one thread does not switch the route
 # of a server answering in another.
 _FUSED_ATTENTION: contextvars.ContextVar = contextvars.ContextVar(
@@ -168,9 +170,10 @@ class Attention(nn.Module):
 
     Plain tensor code (matmul, softmax), as the JAX serving path leaves it to
     its compiler; inside ``fused_attention_scope`` the whole sublayer is one
-    call of ``ops.fused_attention`` when there is no mask and dropout is
-    inert. ``attn_mask``: (B, N, N) bool, True where attention is allowed;
-    masked scores become -1e9."""
+    call of ``ops.fused_attention`` when there is no mask, dropout is inert
+    and the kernels hold the sequence (``kernel_fits``). ``attn_mask``:
+    (B, N, N) bool, True where attention is allowed; masked scores become
+    -1e9."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  qkv_bias: bool = False, attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -188,7 +191,8 @@ class Attention(nn.Module):
         # the fused op applies no dropout: take it only when dropout is inert
         dropout_inert = not self.training or (
             self.attn_drop.p == 0.0 and self.proj_drop.p == 0.0)
-        if _FUSED_ATTENTION.get() and attn_mask is None and dropout_inert:
+        if (_FUSED_ATTENTION.get() and attn_mask is None and dropout_inert
+                and kernel_fits(seq, self.dim, self.num_heads)):
             # weights rounded to the compute dtype first, as Dense rounds
             # them; (out, in) storage goes over as a transposed view
             dt = self.compute_dtype

@@ -69,11 +69,17 @@ def _check(x, wqkv, bqkv, wproj, bproj, heads: int) -> None:
             raise ValueError(f"x is {x.dtype} but {name} is {t.dtype}")
 
 
+def kernel_fits(length: int, dim: int, heads: int) -> bool:
+    """Whether the kernels hold a sequence of ``length`` tokens of width
+    ``dim`` in ``heads`` heads (one head of one cloud a block)."""
+    return length <= MAX_LEN and dim // heads <= MAX_HEAD_DIM
+
+
 def _check_kernel_limits(x: torch.Tensor, heads: int) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the attention kernels take fp32 or bf16, got {x.dtype}")
     length, dim = x.shape[1], x.shape[2]
-    if length > MAX_LEN or dim // heads > MAX_HEAD_DIM:
+    if not kernel_fits(length, dim, heads):
         raise ValueError(
             f"the attention kernels hold one head of one cloud in shared memory: at most "
             f"{MAX_LEN} tokens and head_dim {MAX_HEAD_DIM}, got {length} and {dim // heads}")

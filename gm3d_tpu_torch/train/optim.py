@@ -317,32 +317,57 @@ def build_gm3d_separated_optimizer(student: nn.Module, learning_rate: float,
 
 def layerwise_lr_decay_scales(names: Iterable[str], decay: float = 0.75,
                               num_layers: int = 12) -> Dict[str, float]:
-    """The learning-rate scale of each parameter name of the flat
-    ``PointTransformer`` (``gm3d_tpu/train/optim.py::layerwise_lr_decay_scales``,
-    reference ``util/lr_decay.py:14-61``), by the reference's EFFECTIVE layer
-    ids: ``cls_token`` is layer 0 (``decay ** num_layers``),
-    ``blocks.blocks.{i}.*`` layer ``min(i + 1, num_layers)``, and everything
-    else (patch embed, ``pos_embed``, ``cls_pos``, ``norm_p``, the head)
-    layer ``num_layers``, scale 1. ``num_layers`` is 12 whatever the model's
-    depth, as the reference hard-codes it.
+    """The learning-rate scale of each parameter name
+    (``gm3d_tpu/train/optim.py::layerwise_lr_decay_scales``, reference
+    ``util/lr_decay.py:14-61``).
 
-    Hierarchical Point-M2AE names (``stage{s}`` and ``block{i}``) raise: that
-    family is not ported yet (``ROADMAP.md`` Queue 1 item 3)."""
+    The flat ``PointTransformer``, by the reference's EFFECTIVE layer ids:
+    ``cls_token`` is layer 0 (``decay ** num_layers``), ``blocks.blocks.{i}.*``
+    layer ``min(i + 1, num_layers)``, and everything else (patch embed,
+    ``pos_embed``, ``cls_pos``, ``norm_p``, the head) layer ``num_layers``,
+    scale 1. ``num_layers`` is 12 whatever the model's depth, as the
+    reference hard-codes it.
+
+    A hierarchical Point-M2AE model (names ``...stage{s}.blocks.{i}...``),
+    which the reference never saw: the blocks take cumulative layer ids
+    across the stages (stage 0 first, ``offset(s) + i + 1``), the stem
+    (everything else under ``encoder.``: patch embed, merges, positional
+    embeddings, placeholders) layer 0, and the rest (the norms, the head)
+    layer ``blocks + 1``, scale 1."""
     names = list(names)
-    if any(re.search(r"stage\d+.*block\d+", n) for n in names):
-        raise NotImplementedError(
-            "layer decay over a hierarchical (Point-M2AE) model is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
-
-    def layer_id(name: str) -> int:
-        if name == "cls_token":
-            return 0
-        m = re.match(r"blocks\.blocks\.(\d+)\.", name)
+    block = re.compile(r"stage(\d+)\.blocks\.(\d+)\.")
+    stage_blocks: Dict[int, int] = {}
+    for n in names:
+        m = block.search(n)
         if m:
-            return min(int(m.group(1)) + 1, num_layers)
-        return num_layers
+            s, i = int(m.group(1)), int(m.group(2))
+            stage_blocks[s] = max(stage_blocks.get(s, 0), i + 1)
 
-    return {n: decay ** (num_layers - layer_id(n)) for n in names}
+    if stage_blocks:
+        offsets, total = {}, 0
+        for s in sorted(stage_blocks):
+            offsets[s] = total
+            total += stage_blocks[s]
+        top = total + 1
+        stem = ("encoder.", "cls_token", "cls_pos", "pos_embed", "patch_embed", "merge")
+
+        def layer_id(name: str) -> int:
+            m = block.search(name)
+            if m:
+                return offsets[int(m.group(1))] + int(m.group(2)) + 1
+            return 0 if any(s in name for s in stem) else top
+    else:
+        top = num_layers
+
+        def layer_id(name: str) -> int:
+            if name == "cls_token":
+                return 0
+            m = re.match(r"blocks\.blocks\.(\d+)\.", name)
+            if m:
+                return min(int(m.group(1)) + 1, num_layers)
+            return num_layers
+
+    return {n: decay ** (top - layer_id(n)) for n in names}
 
 
 def build_finetune_optimizer(named_params, learning_rate: float, weight_decay: float = 0.05,

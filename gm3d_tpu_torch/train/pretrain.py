@@ -23,8 +23,13 @@ place. The epoch-dependent knobs (``ema_decay``, ``keep_ratio``, ``w_mse``,
 ``torch.Generator`` or are handed in (``draws``), so that a test can feed the
 JAX step's own draws.
 
-Not ported yet (each raises ``NotImplementedError``): ``distill_mode='clip'``,
-``quantize_ema`` and the M2AE train steps of the JAX module.
+The Point-M2AE steps, ``::make_m2ae_train_step`` (random coarse mask) and
+``::make_m2ae_gm3d_train_step`` (the geometric mask from an EMA loss
+predictor and the learning loss), share ONE hierarchy a step (``build_hierarchy``:
+three FPS and three KNN launches) between their passes.
+
+Not ported yet (each raises ``NotImplementedError``): ``distill_mode='clip'``
+and ``quantize_ema``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ from gm3d_tpu_torch.data.transforms import scale_and_translate
 from gm3d_tpu_torch.masking import block_mask, geometric_mask, gm3d_num_mask, random_mask
 from gm3d_tpu_torch.models.blocks import fused_attention_scope
 from gm3d_tpu_torch.models.gm3d import GM3DStudent
+from gm3d_tpu_torch.models.m2ae import PointM2AE, build_hierarchy
 from gm3d_tpu_torch.models.pointmae import PointMAE, take_groups
+from gm3d_tpu_torch.ops.chamfer import chamfer_group
 from gm3d_tpu_torch.ops.group import Grouped, group_points
 from gm3d_tpu_torch.ops.patch_embed import fused_patch_embed, params_from_module
 from gm3d_tpu_torch.train import losses
@@ -49,6 +56,8 @@ from gm3d_tpu_torch.utils.device import resolve_device
 
 METRIC_KEYS = ("loss", "loss_recon", "loss_mse", "loss_chfr", "loss_learn", "grad_norm")
 POINTMAE_METRIC_KEYS = ("loss", "grad_norm")
+M2AE_METRIC_KEYS = ("loss", "grad_norm")
+M2AE_GM3D_METRIC_KEYS = ("loss", "loss_chfr", "loss_learn", "grad_norm")
 
 
 def make_pointmae_train_step(model: PointMAE, optimizer: torch.optim.Optimizer,
@@ -401,16 +410,160 @@ def make_multi_step(step_fn: Callable, has_scalars: bool = True) -> Callable:
     return multi
 
 
-def _not_ported(name: str):
-    def raiser(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet")
+def m2ae_losses(model: PointM2AE, outs: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Chamfer loss over the masked finest groups, and the loss matrix
+    (B, G_last): each coarsest group's mean over the masked finest groups
+    whose nearest coarsest center it is (``_m2ae_losses`` of the JAX module)."""
+    per_fine = chamfer_group(outs["rebuild"].to(torch.float32),
+                             outs["gt"].to(torch.float32))  # (B, G_0)
+    w = (~outs["fine_vis"]).to(torch.float32)
+    loss = (per_fine * w).sum() / w.sum().clamp_min(1.0)
+    coarse = torch.zeros((w.shape[0], model.num_groups[-1]), dtype=torch.float32,
+                         device=w.device)
+    index = outs["fine_to_coarse"].long()
+    num = coarse.scatter_add(1, index, per_fine * w)
+    den = coarse.scatter_add(1, index, w).clamp_min(1.0)
+    return loss, num / den
 
-    raiser.__name__ = name
-    return raiser
+
+def _step_all(optimizer, params) -> None:
+    """optax steps every parameter, a missing gradient as zero (its decay
+    included): so does the port's step (``SeparatedAdamW.step`` does the same)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    optimizer.step()
 
 
-make_m2ae_train_step = _not_ported("make_m2ae_train_step")
-make_m2ae_gm3d_train_step = _not_ported("make_m2ae_gm3d_train_step")
+def make_m2ae_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0.8,
+                         augment: bool = True, device="cuda") -> Callable:
+    """Build ``step(state, pts, generator, draws=None)``: the Point-M2AE
+    pretrain step. Augment, a random mask of ``int(G_last * mask_ratio)``
+    coarsest groups, ONE hierarchy, the masked reconstruction in train mode,
+    the Chamfer loss over the masked finest groups, backward, the optimizer.
+
+    ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and ``noise`` (B,
+    G_last). Launches FPS 3 and KNN 6 a step (the hierarchy's 3, the
+    forward's k = 1 maps 3) and no attention kernel. Returns ``(state,
+    {"loss", "grad_norm"})``, 0-d tensors on the device."""
+    dev = resolve_device(device)
+    coarse_groups = model.num_groups[-1]
+    num_mask = int(coarse_groups * mask_ratio)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, pts: torch.Tensor, generator: Optional[torch.Generator],
+             draws: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.student is not model or state.optimizer is not optimizer:
+            raise ValueError("the step was built for another model or optimizer")
+        draws = draws or {}
+        pts = pts.to(dev)
+        with torch.no_grad():
+            samples = (scale_and_translate(generator, pts, scale=draws.get("scale"),
+                                           shift=draws.get("shift")) if augment else pts)
+            coarse_vis = ~random_mask(generator, samples.shape[0], coarse_groups, num_mask,
+                                      noise=draws.get("noise"), device=dev)
+            hierarchy = build_hierarchy(samples, model.num_groups, model.group_sizes)
+        model.train()
+        outs = model(samples, coarse_vis, hierarchy, generator)
+        loss, _ = m2ae_losses(model, outs)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+        _step_all(optimizer, params)
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    step.num_mask = num_mask
+    return step
+
+
+def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0.8,
+                              relative: bool = True, augment: bool = True,
+                              use_fused_attention: bool = False,
+                              device="cuda") -> Callable:
+    """Build ``step(state, pts, generator, scalars, draws=None, mark=None)``:
+    Point-M2AE with GM3D's geometric masking. ``state`` must hold an EMA copy.
+
+      1. augment, ONE hierarchy shared by the two passes;
+      2. the EMA forward, all visible, eval mode -> per-coarsest-group
+         predicted loss (it stops at that head);
+      3. ``geometric_mask`` of ``gm3d_num_mask(G_last, mask_ratio)`` groups
+         (the top ``keep_ratio`` share by predicted loss, the rest at random);
+      4. the student's masked reconstruction in train mode, the Chamfer loss
+         and the loss matrix (``m2ae_losses``, no gradient through it);
+      5. the learning loss (relative, or MSE) on the masked coarsest slots in
+         index order (a stable arg-sort);
+      6. AdamW (its clip is the optimizer's: 5 in the CLI), then the EMA of
+         the parameters and BatchNorm statistics at ``scalars["ema_decay"]``.
+
+    ``use_fused_attention`` (the JAX default, off): the unmasked attention
+    sites the kernels hold take them, i.e. the decoder's coarsest stage
+    (``dec_stage0``, 64 tokens at full width); the encoder's stages carry a
+    mask and the finer decoder sites are longer. Launches a step: FPS 3, KNN
+    8 (the hierarchy 3, the EMA's k = 1 maps 2, the student's 3); with the
+    fused attention, ``attention_fwd`` 2 and ``attention_bwd`` 1 a block of
+    ``dec_stage0``. ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and
+    ``noise`` (B, G_last); ``mark(stage)``, if given, is called after each
+    stage is enqueued. Returns ``(state, {"loss", "loss_chfr", "loss_learn",
+    "grad_norm"})``, 0-d tensors on the device."""
+    dev = resolve_device(device)
+    coarse_groups = model.num_groups[-1]
+    num_mask = gm3d_num_mask(coarse_groups, mask_ratio)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, pts: torch.Tensor, generator: Optional[torch.Generator],
+             scalars: Mapping[str, float],
+             draws: Optional[Mapping[str, torch.Tensor]] = None,
+             mark: Optional[Callable[[str], None]] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.student is not model or state.optimizer is not optimizer:
+            raise ValueError("the step was built for another model or optimizer")
+        if state.ema is None:
+            raise ValueError("the M2AE + GM3D step needs a state with an EMA copy")
+        draws = draws or {}
+        mark = mark or (lambda stage: None)
+        pts = pts.to(dev)
+        with torch.no_grad():
+            samples = (scale_and_translate(generator, pts, scale=draws.get("scale"),
+                                           shift=draws.get("shift")) if augment else pts)
+            batch = samples.shape[0]
+            hierarchy = build_hierarchy(samples, model.num_groups, model.group_sizes)
+            mark("augment_hierarchy")
+            all_vis = torch.ones((batch, coarse_groups), dtype=torch.bool, device=dev)
+            with fused_attention_scope(use_fused_attention):
+                outs_ema = state.ema(samples, all_vis, hierarchy, loss_pred_only=True)
+            coarse_vis = ~geometric_mask(generator, outs_ema["loss_pred"], num_mask,
+                                         scalars["keep_ratio"], noise=draws.get("noise"))
+            mark("ema_forward_mask")
+
+        model.train()
+        with fused_attention_scope(use_fused_attention):
+            outs = model(samples, coarse_vis, hierarchy, generator)
+            mark("student_forward")
+            loss, matrix = m2ae_losses(model, outs)
+            # the masked coarsest slots in index order (masked = False sorts first)
+            mask_idx = torch.argsort(coarse_vis.to(torch.int32), dim=-1,
+                                     stable=True)[:, :num_mask]
+            lp = torch.gather(outs["loss_pred"], 1, mask_idx)
+            mt = torch.gather(matrix.detach(), 1, mask_idx)
+            loss_learn = (losses.relative_learning_loss(lp, mt) if relative
+                          else losses.mse_learning_loss(lp, mt))
+            total = loss + loss_learn
+            mark("losses")
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            mark("backward")
+        grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+        _step_all(optimizer, params)
+        ema_update(state.ema, model, scalars["ema_decay"])
+        state.step += 1
+        mark("optimizer_ema")
+        return state, {"loss": total.detach(), "loss_chfr": loss.detach(),
+                       "loss_learn": loss_learn.detach(), "grad_norm": grad_norm}
+
+    step.num_mask = num_mask
+    return step
 
 
 def probe_draws(generator: Optional[torch.Generator],

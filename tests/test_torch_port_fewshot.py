@@ -233,8 +233,8 @@ def test_the_two_fewshot_clis_agree(source, monkeypatch, tmp_path):
 
 def test_the_fewshot_cli_takes_both_fold_flags_and_refuses_what_is_not_ported(tmp_path):
     """``--no-parallel_folds`` gives the same folds (they run in turn either
-    way); several devices and a Point-M2AE config raise, naming their
-    items."""
+    way); several devices raise, naming their item. (A Point-M2AE config
+    trains the hierarchical classifier: ``tests/test_torch_port_m2ae_cli.py``.)"""
     config = _config(tmp_path)
     flags = ["--config", config, "--synthetic", "--way", "2", "--shot", "2", "--folds", "2",
              "--epochs", "1", "--device", "cpu"]
@@ -243,9 +243,3 @@ def test_the_fewshot_cli_takes_both_fold_flags_and_refuses_what_is_not_ported(tm
     assert runs[0] == runs[1] and len(runs[0]["accs"]) == 2
     with pytest.raises(NotImplementedError, match="item 8"):
         cli.main([*flags, "--num_devices", "2", "--output_dir", str(tmp_path / "x")])
-    cfg = yaml.safe_load(open(config))
-    cfg["model"]["NAME"] = "Point_M2AE_ModelNet40"
-    (tmp_path / "m2ae.yaml").write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cli.main([*flags[2:], "--config", str(tmp_path / "m2ae.yaml"),
-                  "--output_dir", str(tmp_path / "y")])

@@ -124,8 +124,12 @@ def test_layer_decay_scales_equal_the_jax_scales_name_by_name(depth):
     for stem in ("encoder.first_conv.0.weight", "pos_embed.0.weight", "cls_pos", "norm_p.weight",
                  "cls_head_finetune.8.weight"):
         assert got[stem] == 1.0
-    with pytest.raises(NotImplementedError, match="item 3"):
-        layerwise_lr_decay_scales(["stage0.block1.attn.qkv.weight"])
+    # a hierarchical (Point-M2AE) name set takes the cumulative block ids
+    # (held against the JAX scales in tests/test_torch_port_m2ae.py)
+    assert layerwise_lr_decay_scales(
+        ["encoder.stage0.blocks.1.attn.qkv.weight", "encoder.pos0.0.weight", "norm0.weight"],
+        0.75) == {"encoder.stage0.blocks.1.attn.qkv.weight": 0.75,
+                  "encoder.pos0.0.weight": 0.75 ** 3, "norm0.weight": 1.0}
 
 
 OPTIMIZER_CASES = {"layer decay": dict(), "layer decay and clip": dict(grad_clip=0.05),

@@ -64,6 +64,14 @@ SEG_FEWSHOT_MODULES = {
 }
 
 
+# the Point-M2AE family: its model; its steps, CLI, probe pooling, layer decay,
+# name tables, transfer and export live in modules listed above or earlier
+M2AE_MODULES = {"gm3d_tpu_torch.models.m2ae", "gm3d_tpu_torch.train.pretrain",
+                "gm3d_tpu_torch.train.optim", "gm3d_tpu_torch.ckpt.torch_import",
+                "gm3d_tpu_torch.ckpt.transfer", "gm3d_tpu_torch.cli.finetune",
+                "gm3d_tpu_torch.cli.export_model", "gm3d_tpu_torch.config.registry"}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -77,7 +85,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
     assert int(lines["IMPORTED"]) >= 53
     assert (PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES | SEG_FEWSHOT_MODULES
-            <= set(lines["NAMES"].split()))
+            | M2AE_MODULES <= set(lines["NAMES"].split()))
     assert lines["FOREIGN"] == "[]"
 
 
@@ -264,6 +272,31 @@ def test_seg_and_fewshot_entry_points_default_to_cuda_and_say_so(tmp_path):
     logits = segmentation.make_seg_eval_step(model, device="cpu")(torch.randn(2, 32, 3),
                                                                   torch.tensor([0, 15]))
     assert logits.shape == (2, 32, 50)
+
+
+def test_m2ae_entry_points_default_to_cuda_and_say_so(tmp_path):
+    """The pretrain CLI on ``--model_family m2ae`` / ``m2ae_gm3d`` and both
+    M2AE steps raise without a GPU unless given ``--device cpu`` /
+    ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli import pretrain as pretrain_cli
+    from gm3d_tpu_torch.models import PointM2AE
+    from gm3d_tpu_torch.train import pretrain
+
+    model = PointM2AE(num_groups=(16, 8, 4), group_sizes=(4, 4, 2), encoder_depths=(1, 1, 1),
+                      encoder_dims=(8, 16, 24), decoder_dims=(24, 16), num_heads=2)
+    optimizer = torch.optim.SGD(model.parameters(), lr=1e-3)
+    for family in ("m2ae", "m2ae_gm3d"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pretrain_cli.main(["--config", "configs/m2ae/config_Point_M2AE.yaml",
+                               "--model_family", family, "--synthetic",
+                               "--output_dir", str(tmp_path / family)])
+        assert not (tmp_path / family / "log.txt").exists()
+    for make in (pretrain.make_m2ae_train_step, pretrain.make_m2ae_gm3d_train_step):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(model, optimizer)
+        make(model, optimizer, device="cpu")  # asked for, the CPU is taken
 
 
 @pytest.mark.parametrize("wrapper", ["patch_embed", "attention_fwd", "attention_bwd"])

@@ -244,7 +244,6 @@ def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
 
 
 NOT_PORTED = [
-    ["--model_family", "m2ae"], ["--model_family", "m2ae_gm3d"],
     ["--learn_feature_loss", "clip"], ["--quantize_ema"], ["--num_devices", "2"],
     ["--native_loader"],
 ]

@@ -304,31 +304,13 @@ def _pointmae_step_with_the_emd_loss():
     step(create_train_state(model, optimizer), torch.from_numpy(_clouds(0)), None)
 
 
-def _probe_features_of_a_model_that_pools_its_own():
-    """``make_probe_step`` is ported (``tests/test_torch_port_probe.py``); what
-    the probe's path still defers is Point-M2AE's per-scale pooling
-    (``pooled_features``) in ``eval/svm.py::make_feature_fn``, which waits for
-    ``models/m2ae.py``."""
-    from gm3d_tpu_torch.eval.svm import make_feature_fn
-
-    class PoolsPerScale(torch.nn.Module):
-        def pooled_features(self, pts):
-            return pts.mean(dim=1)
-
-    make_feature_fn(PoolsPerScale())
-
-
 # what each deferred step raises, and the words that say why
 DEFERRED = {
     "make_pointmae_train_step": (_pointmae_step_with_the_emd_loss, r"ops/emd\.py"),
-    "make_m2ae_train_step": (lambda: tp.make_m2ae_train_step(), "not ported"),
-    "make_m2ae_gm3d_train_step": (lambda: tp.make_m2ae_gm3d_train_step(), "not ported"),
-    "make_probe_step": (_probe_features_of_a_model_that_pools_its_own, r"models/m2ae\.py"),
 }
 
 
-@pytest.mark.parametrize("name", ["make_pointmae_train_step", "make_m2ae_train_step",
-                                  "make_m2ae_gm3d_train_step", "make_probe_step"])
+@pytest.mark.parametrize("name", ["make_pointmae_train_step"])
 def test_deferred_steps_raise(name):
     call, why = DEFERRED[name]
     with pytest.raises(NotImplementedError, match=why):

@@ -269,8 +269,12 @@ def test_the_registry_builds_the_seg_model_and_refuses_m2ae():
     assert model.num_parts == 50 and model.head_fc1.in_features == 512 + 6 * 384 + 64 + 3
     # 12 blocks of 11 tensors, named as PointTransformer names them
     assert len([k for k in model.state_dict() if k.startswith("blocks.blocks.")]) == 12 * 11
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_model_from_cfg({"NAME": "Point_M2AE_SEG"})
+    # the Point-M2AE seg model is built now (held against JAX in
+    # tests/test_torch_port_m2ae.py); the head is PointMAESeg's over 3 scales
+    m2ae = build_model_from_cfg(
+        yaml.safe_load(open("configs/m2ae/seg_shapenetpart_PointM2AE.yaml"))["model"])
+    assert type(m2ae).__name__ == "PointM2AESeg" and m2ae.num_parts == 50
+    assert m2ae.head_fc1.in_features == 512 + 2 * (96 + 192 + 384) + 64 + 3
 
 
 # ---------------------------------------------------------------------------
