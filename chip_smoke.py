@@ -139,6 +139,26 @@ Phases, each printing one JSON line when it ends:
               against the plain versions, then a train step and an eval batch,
               launches FPS 3 / KNN 6, ms
 
+  evaluate    offline evaluation, visualisation and int8 on the checkpoints of the
+              phases ``finetune``, ``segmentation`` and ``m2ae`` and the GM3D pretrain
+              one (each made by one short CLI epoch where its phase did not run):
+              ``cli/evaluate.py --probe acc --vote --vote_repeats 2`` (accuracy equal
+              to the finetune CLI's record of ``ckpt/best``, the vote finite and at
+              least each repeat, FPS 2 / KNN 1 a batch); ``--probe svm``, ``knn``,
+              ``linprob`` on the GM3D checkpoint (kNN equal on the card and the CPU
+              over the same features, the linear probe within one test cloud; wall
+              times); ``--svm_scales both`` on the M2AE checkpoint; ``--probe seg``
+              (mIoU equal to the seg CLI's record); ``cli/visualize.py --heatmap`` on
+              4 clouds (files, vertex counts, launches) and both dumps on the card
+              against the CPU within ``TOL_VIS``; ``ckpt/best`` exported with
+              ``--quantize int8`` (and fp32, bf16) and served: the int8 product's
+              int32 accumulations equal to the CPU's at every (K, N) of the
+              classifier, padded or not, logits within ``QUANT_LOGIT_TOL`` of the
+              fp32 artifact's range, FPS and KNN once a batch; top-1 agreement,
+              sizes, clouds/s of the three; four GM3D steps with ``quantize_ema``
+              (launches 1/1/2/72/28 a step, finite, ``'ema'`` refused), its ms a step
+              beside the default step's, the int8 EMA pass's predicted-loss gap
+
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
 the probe's.
@@ -2645,8 +2665,393 @@ def phase_m2ae(env: dict, tmp: str, seed: int) -> dict:
     return {"launches": launches, "launches_finetune": ft_launches, "kernels": res["kernels"]}
 
 
+# the offline evaluation, visualisation and int8 path (phase evaluate): feature probes over
+# 128 + 64 synthetic labelled clouds (make_loaders at --synthetic_samples 256, batches of 128)
+EVAL_SAMPLES, EVAL_BATCH, EVAL_LINPROB_EPOCHS, EVAL_VOTE_REPEATS = 256, 64, 5, 2
+EVAL_PROBE_BATCHES = 2
+# an evaluation batch of the classifier: FPS 8,192 -> 1,024 and the grouping's FPS and KNN;
+# a vote batch the same with point_all 1,200; nothing else (phase finetune's counts)
+EVAL_GM3D_ENCODER = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
+                     "attention_bwd": 0}
+# visualize --heatmap: the masked Point-MAE forward's grouping, the reconstruction's own
+# grouping (gm3d_tpu/eval/visualize.py:25), the student's unmasked forward's grouping
+VIS_LAUNCHES = {"fps": 3, "knn": 3, "patch_embed": 0, "attention_fwd": 0, "attention_bwd": 0}
+VIS_SAMPLES = 4
+# int8 serving: one grouping a 128-cloud batch of 1,024 points (no FPS to npoints)
+QUANT_LAUNCHES_PER_BATCH = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
+                            "attention_bwd": 0}
+QUANT_LOGIT_TOL = 0.15  # of the fp32 artifact's logit range (tests/test_quantize.py:39)
+QUANT_EMA_STEPS = 4
+TOL_VIS = 1e-4
+
+
+class _Lines(logging.Handler):
+    """Keeps the messages a logger emits."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _evaluate_cli(*flags: str, lines: list | None = None):
+    """``cli/evaluate.py`` in this process: (its result, wall s); ``lines``,
+    where given, gets its log messages."""
+    from gm3d_tpu_torch.cli import evaluate as evaluate_cli
+
+    _fresh_cli_logger("gm3d.eval")
+    handler = _Lines()
+    logging.getLogger("gm3d.eval").addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        out = evaluate_cli.main(list(flags))
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger("gm3d.eval").removeHandler(handler)
+    if lines is not None:
+        lines.extend(handler.lines)
+    return out, time.perf_counter() - t0
+
+
+def _ensure_checkpoints(tmp: str, pretrained: str, seed: int) -> dict:
+    """The checkpoints phase ``evaluate`` scores, from the phases ``finetune``,
+    ``segmentation`` and ``m2ae`` where they ran, else from one short epoch of
+    each CLI here (a partial run): {name: (ckpt, config, log records)}."""
+    from gm3d_tpu_torch.cli import finetune_seg as seg_cli
+
+    out = {}
+    ft_out = os.path.join(tmp, "finetune_hpm")
+    if not os.path.isdir(ft_out):
+        data = os.path.join(tmp, "modelnet40")
+        if not os.path.isdir(data):
+            _modelnet_dir(data, seed)
+        ft_out = os.path.join(tmp, "finetune_eval")
+        _finetune_cli(_finetune_config(tmp, data), pretrained, ft_out, "--epochs", "1")
+    out["finetune"] = (os.path.join(ft_out, "ckpt", "best"),
+                       os.path.join(tmp, "finetune_modelnet_local.yaml"), _read_log(ft_out))
+    seg_out = os.path.join(tmp, "seg")
+    if not os.path.isdir(seg_out):
+        _fresh_cli_logger("gm3d.seg")
+        seg_cli.main(["--config", SEG_CONFIG, "--synthetic", "--synthetic_samples",
+                      str(SEG_SAMPLES), "--epochs", "1", "--pretrained", pretrained,
+                      "--output_dir", seg_out])
+    out["segmentation"] = (os.path.join(seg_out, "ckpt", "best"), SEG_CONFIG, _read_log(seg_out))
+    m2ae_out = os.path.join(tmp, "m2ae_pretrain")
+    if not os.path.isdir(m2ae_out):
+        _fresh_cli_logger()
+        pretrain_cli.main(["--config", M2AE_CONFIG, "--model_family", "m2ae_gm3d", "--synthetic",
+                           "--synthetic_samples", str(M2AE_BATCH), "--batch_size",
+                           str(M2AE_BATCH), "--epochs", "1", "--output_dir", m2ae_out])
+    out["m2ae"] = (os.path.join(m2ae_out, "ckpt"), M2AE_CONFIG, _read_log(m2ae_out))
+    return out
+
+
+def _ply_vertices(path: str) -> tuple[np.ndarray, np.ndarray]:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    body = np.array([ln.split() for ln in lines[lines.index("end_header") + 1:]], np.float64)
+    return body[:, :3], body[:, 3:]
+
+
+def _probe_checks(tmp: str, pretrained: str, res: dict) -> dict:
+    """The three feature probes through the CLI on the GM3D checkpoint, then kNN
+    and the linear probe on the card and on the CPU over the same features."""
+    from gm3d_tpu_torch.cli.common import make_loaders
+    from gm3d_tpu_torch.cli.evaluate import build_feature_model, parse_args
+    from gm3d_tpu_torch.config import cfg_from_yaml_file
+    from gm3d_tpu_torch.eval.knn import knn_classifier
+    from gm3d_tpu_torch.eval.linear_probe import linear_probe
+    from gm3d_tpu_torch.eval.svm import extract_features, make_feature_fn
+
+    flags = ["--config", GM3D_CONFIG, "--synthetic", "--synthetic_samples", str(EVAL_SAMPLES),
+             "--batch_size", str(EVAL_BATCH), "--ckpt", pretrained, "--output_dir",
+             os.path.join(tmp, "eval_probe")]
+    probes = {}
+    for probe, extra in (("svm", []), ("knn", []),
+                         ("linprob", ["--linprob_epochs", str(EVAL_LINPROB_EPOCHS)])):
+        pp.reset_launches()
+        acc, wall = _evaluate_cli(*flags, "--probe", probe, *extra)
+        launches = pp.read_launches()
+        want = {k: v * EVAL_PROBE_BATCHES for k, v in EVAL_GM3D_ENCODER.items()}
+        check(launches == want, f"--probe {probe} launches {launches}, expected {want}")
+        check(0.0 <= acc <= 1.0, acc)
+        probes[probe] = {"acc": acc, "wall_s": wall, "launches": launches}
+    # the same features on the card and on the CPU: kNN exactly, the probe to one cloud
+    args = parse_args(flags)
+    cfg = cfg_from_yaml_file(GM3D_CONFIG)
+    cfg["total_bs"] = EVAL_BATCH
+    _, svm_train, svm_test = make_loaders(cfg, args)
+    model = build_feature_model(args, cfg, torch.float32, logging.getLogger("gm3d.eval")).to(DEV)
+    feature_fn = make_feature_fn(model, cfg["npoints"])
+    feats = [*extract_features(feature_fn, svm_train, DEV), *extract_features(feature_fn,
+                                                                              svm_test, DEV)]
+    cpu = [f.cpu() for f in feats]
+    knn_card, knn_cpu = knn_classifier(*feats), knn_classifier(*cpu)
+    lin_card = linear_probe(*feats, epochs=EVAL_LINPROB_EPOCHS)
+    lin_cpu = linear_probe(*cpu, epochs=EVAL_LINPROB_EPOCHS)
+    test_clouds = int(feats[3].shape[0])
+    check(knn_card == knn_cpu == probes["knn"]["acc"],
+          f"kNN card {knn_card}, CPU {knn_cpu}, CLI {probes['knn']['acc']}")
+    check(abs(lin_card - lin_cpu) <= 1.0 / test_clouds + 1e-12,
+          f"linear probe card {lin_card} against CPU {lin_cpu}")
+    check(abs(lin_card - probes["linprob"]["acc"]) <= 1.0 / test_clouds + 1e-12,
+          (lin_card, probes["linprob"]["acc"]))
+    res["probes"] = probes
+    res["card_vs_cpu"] = {"knn": [knn_card, knn_cpu], "linprob": [lin_card, lin_cpu],
+                          "train_features": list(feats[0].shape), "test_clouds": test_clouds}
+    return {k: sum(p["launches"][k] for p in probes.values()) for k in EVAL_GM3D_ENCODER}
+
+
+def _visualize_checks(tmp: str, seed: int, res: dict) -> dict:
+    """The visualize CLI with ``--heatmap`` on VIS_SAMPLES clouds, then both
+    dumps on the card against the CPU from the same weights and mask."""
+    import gm3d_tpu_torch.eval.visualize as vis
+    from gm3d_tpu_torch.cli import visualize as visualize_cli
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+    from gm3d_tpu_torch.masking import random_mask
+    from gm3d_tpu_torch.models import GM3DStudent
+
+    out = os.path.join(tmp, "vis")
+    _fresh_cli_logger("gm3d.vis")
+    pp.reset_launches()
+    t0 = time.perf_counter()
+    visualize_cli.main(["--config", GM3D_CONFIG, "--synthetic", "--num_samples",
+                        str(VIS_SAMPLES), "--heatmap", "--seed", str(seed), "--out_dir", out,
+                        "--output_dir", os.path.join(tmp, "vis_run")])
+    wall = time.perf_counter() - t0
+    launches = pp.read_launches()
+    check(launches == VIS_LAUNCHES, f"visualize launches {launches}, expected {VIS_LAUNCHES}")
+    names = sorted(os.listdir(out))
+    want = sorted(f"{p}_{b}.ply" for p in ("vis", "heat") for b in range(VIS_SAMPLES))
+    check(names == want, names)
+    counts = {n: len(_ply_vertices(os.path.join(out, n))[0]) for n in names}
+    check(set(counts.values()) == {NUM_GROUP * GROUP_SIZE}, counts)
+    # card against CPU: the same weights (from seed), clouds and mask
+    mae = build_model_from_cfg(cfg_from_yaml_file(GM3D_CONFIG)["model"])
+    mae.reset_parameters(torch.Generator().manual_seed(seed))
+    student = GM3DStudent()
+    student.reset_parameters(torch.Generator().manual_seed(seed))
+    pts = torch.from_numpy(visualize_cli.load_clouds(
+        visualize_cli.parse_args(["--config", GM3D_CONFIG, "--synthetic", "--num_samples",
+                                  str(VIS_SAMPLES)]), {}, NPOINTS))
+    num_mask = int(NUM_GROUP * 0.6)
+    mask = random_mask(torch.Generator().manual_seed(seed), VIS_SAMPLES, NUM_GROUP, num_mask)
+    gaps = {}
+    for where, dev in (("cuda", DEV), ("cpu", torch.device("cpu"))):
+        d = os.path.join(tmp, f"vis_{where}")
+        vis.dump_reconstruction(copy.deepcopy(mae).to(dev), pts.to(dev), mask, num_mask, d)
+        vis.dump_loss_heatmap(copy.deepcopy(student).to(dev), pts.to(dev), d)
+    for name in want:
+        va, ca = _ply_vertices(os.path.join(tmp, "vis_cuda", name))
+        vb, cb = _ply_vertices(os.path.join(tmp, "vis_cpu", name))
+        gaps[name] = [float(np.abs(va - vb).max()), float(np.abs(ca - cb).max())]
+    check(max(g[0] for g in gaps.values()) <= TOL_VIS, gaps)
+    check(max(g[1] for g in gaps.values() if g) <= 1, gaps)
+    res["visualize"] = {"files": names, "vertices": counts, "launches": launches,
+                        "wall_s": wall, "card_vs_cpu_vertex_gap": max(g[0] for g in gaps.values()),
+                        "card_vs_cpu_colour_gap": max(g[1] for g in gaps.values()),
+                        "tol": TOL_VIS}
+    return launches
+
+
+def _int8_checks(tmp: str, ckpt: str, config: str, res: dict) -> dict:
+    """The finetuned classifier exported fp32, bf16 and int8, served; the int8
+    product's accumulations on the card against the CPU at every (K, N) of
+    the classifier; logits, agreement, sizes, clouds/s."""
+    from gm3d_tpu_torch.serve import load_artifact
+    from gm3d_tpu_torch.serve import quantize as q
+
+    arts = {}
+    for name, extra in (("int8", ["--quantize", "int8"]), ("fp32", []), ("bf16", ["--bf16"])):
+        arts[name] = export_model.main(["--config", config, "--ckpt", ckpt, "--export_batch",
+                                        str(SERVE_BATCH), "--out",
+                                        os.path.join(tmp, f"cls_{name}.gm3dx"), *extra])
+    sizes = {k: os.path.getsize(v) for k, v in arts.items()}
+    fn, manifest = load_artifact(arts["int8"], device="cuda")
+    check(manifest["quantization"] == "int8", manifest["quantization"])
+    # every (K, N) of the int8 model's layers, rows that pad (37) and rows that do not (4096)
+    shapes = sorted({(int(m.weight.shape[1]), int(m.weight.shape[0]))
+                     for m in fn.module.modules() if isinstance(m, q.QUANT_LAYERS)})
+    gen = torch.Generator().manual_seed(5)
+    accum = []
+    for k, n in shapes:
+        for rows in (37, 4096):
+            qx = torch.randint(-127, 128, (rows, k), generator=gen, dtype=torch.int8)
+            qw = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+            card = q.int8_matmul(qx.to(DEV), qw.to(DEV))
+            check(card.dtype == torch.int32, card.dtype)
+            check(torch.equal(card.cpu(), q.int8_matmul(qx, qw)),
+                  f"int8 accumulations differ at rows {rows}, K {k}, N {n}")
+            accum.append([rows, k, n])
+    with open(os.path.join(tmp, "modelnet40", "modelnet40_test_8192pts_fps.dat"), "rb") as f:
+        clouds = np.ascontiguousarray(pickle.load(f)[0][:SERVE_BATCH, :NPOINTS])
+    served = {name: ServingModel(art, device="cuda") for name, art in arts.items()}
+    pp.reset_launches()  # the int8 serving path: every launch count starts from 0 here
+    logits = served["int8"].predict(clouds)
+    torch.cuda.synchronize()
+    launches = pp.read_launches()
+    check(launches == QUANT_LAUNCHES_PER_BATCH, f"int8 serving launches {launches}")
+    ref = served["fp32"].predict(clouds)
+    gap = float(np.abs(logits - ref).max() / np.abs(ref).max())
+    check(np.isfinite(logits).all() and gap <= QUANT_LOGIT_TOL, f"int8 logits: gap {gap}")
+    x = torch.from_numpy(clouds).to(DEV)
+    rates = {}
+    for name, model in served.items():
+        with torch.inference_mode():
+            dev_ms = cuda_ms(lambda: model.device_call(x), runs=10, warmup=2)
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(4):
+                model.predict(clouds)
+            windows.append(4 * SERVE_BATCH / (time.perf_counter() - t0))
+        rates[name] = {"device_ms_per_batch": dev_ms,
+                       "clouds_per_s_device": SERVE_BATCH / dev_ms * 1e3,
+                       "clouds_per_s_end_to_end": statistics.median(windows)}
+    res["int8_serving"] = {
+        "launches_one_batch": launches, "accumulation_shapes_equal": accum,
+        "logit_gap_of_range": gap, "tol": QUANT_LOGIT_TOL,
+        "top1_agreement_with_fp32": float((logits.argmax(-1) == ref.argmax(-1)).mean()),
+        "artifact_bytes": sizes, "int8_over_fp32_bytes": sizes["int8"] / sizes["fp32"],
+        "throughput": rates}
+    return launches
+
+
+def _quantize_ema_checks(res: dict) -> dict:
+    """QUANT_EMA_STEPS GM3D steps with ``quantize_ema`` at the train phase's
+    shapes (dino): launches, finite metrics; 'ema' refused; ms a step beside
+    the default step's; the gap of the int8 EMA pass's predicted loss."""
+    from gm3d_tpu_torch.serve.quantize import quantized_dense
+
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    try:
+        make_gm3d_train_step(state.student, teacher, state.optimizer, distill_mode="ema",
+                             quantize_ema=True)
+        check(False, "quantize_ema with distill_mode='ema' was not refused")
+    except ValueError:
+        pass
+    steps = {"int8": make_gm3d_train_step(state.student, teacher, state.optimizer,
+                                          quantize_ema=True),
+             "fp32": make_gm3d_train_step(state.student, teacher, state.optimizer)}
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    pp.reset_launches()  # the quantize_ema path: every launch count starts from 0 here
+    history = []
+    for _ in range(QUANT_EMA_STEPS):
+        state, m = steps["int8"](state, _train_clouds(gen), gen, pp.SCALARS)
+        history.append({k: float(m[k]) for k in METRIC_KEYS})
+    torch.cuda.synchronize()
+    launches = pp.read_launches()
+    want = {k: v * QUANT_EMA_STEPS for k, v in LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"quantize_ema launches {launches}, expected {want}")
+    check(all(np.isfinite(v) for h in history for v in h.values()), history)
+    pts = _train_clouds(gen)
+    timing = {}
+    for _ in range(2):  # int8, fp32, int8, fp32: each the median of 5 after 2 warm-up
+        for name, step in steps.items():
+            ms, wall, _ = _step_ms(lambda: step(state, pts, gen, pp.SCALARS)[1])
+            timing.setdefault(name, []).append({"ms_cuda_events": ms, "ms_wall": wall})
+    with torch.no_grad():
+        zeros = torch.zeros((TRAIN_BATCH, NUM_GROUP), dtype=torch.bool, device=DEV)
+        fp = state.ema(pts, zeros, 0, loss_pred_only=True)["loss_pred"]
+        with quantized_dense():
+            int8 = state.ema(pts, zeros, 0, loss_pred_only=True)["loss_pred"]
+    res["quantize_ema"] = {
+        "steps": QUANT_EMA_STEPS, "batch": TRAIN_BATCH, "launches": launches,
+        "metrics": history, "timing": timing,
+        "ema_loss_pred_max_gap": float((int8 - fp).abs().max()),
+        "ema_loss_pred_range": float(fp.abs().max()),
+        "ema_distill_refused": True}
+    return launches
+
+
+def phase_evaluate(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
+    """Offline evaluation, visualisation and int8 quantization on the card:
+    ``cli/evaluate.py`` every probe on the earlier phases' checkpoints,
+    ``cli/visualize.py``, int8 serving, the ``quantize_ema`` step."""
+    from gm3d_tpu_torch.ckpt.checkpoint import load_best_metrics
+
+    res = {"phase": "evaluate"}
+    t_phase = time.perf_counter()
+    ckpts = _ensure_checkpoints(tmp, pretrained, seed)
+    launches = {k: 0 for k in LAUNCHES_PER_STEP}
+
+    def add(more):
+        for k in launches:
+            launches[k] += more[k]
+
+    # ---- --probe acc --vote on the finetune CLI's ckpt/best (the main path: counts from 0)
+    best, config, log = ckpts["finetune"]
+    pp.reset_launches()
+    lines = []
+    (acc, vote), wall = _evaluate_cli("--config", config, "--ckpt", best, "--vote",
+                                      "--vote_repeats", str(EVAL_VOTE_REPEATS), "--output_dir",
+                                      os.path.join(tmp, "eval_acc"), lines=lines)
+    got = pp.read_launches()
+    recorded = load_best_metrics(os.path.dirname(best))["best"]
+    check(acc == recorded, f"evaluate acc {acc} against the finetune CLI's {recorded}")
+    repeats = [float(m.group(1)) for m in (re.search(r"TEST_VOTE_time \d+\] acc = ([0-9.]+)", ln)
+                                           for ln in lines) if m]
+    check(len(repeats) == EVAL_VOTE_REPEATS and np.isfinite(vote)
+          and all(vote >= r - 5e-5 for r in repeats), (vote, repeats))
+    batches = -(-FT_TEST // FT_BATCH)
+    want = {k: v * batches * (1 + EVAL_VOTE_REPEATS) for k, v in FT_LAUNCHES_PER_STEP.items()}
+    check(got == want, f"--probe acc launches {got}, expected {want}")
+    add(got)
+    res["acc"] = {"acc": acc, "finetune_cli_recorded": recorded, "vote_acc": vote,
+                  "vote_each_repeat": repeats, "wall_s": wall, "launches": got}
+
+    # ---- svm, knn, linprob on the GM3D pretrain checkpoint; card against CPU
+    add(_probe_checks(tmp, pretrained, res))
+
+    # ---- --svm_scales both on the M2AE CLI's checkpoint
+    m2ae_ckpt, m2ae_config, _ = ckpts["m2ae"]
+    pp.reset_launches()
+    both, wall = _evaluate_cli("--config", m2ae_config, "--model_family", "m2ae", "--probe",
+                               "svm", "--svm_scales", "both", "--ckpt", m2ae_ckpt, "--synthetic",
+                               "--synthetic_samples", str(EVAL_SAMPLES), "--batch_size",
+                               str(EVAL_BATCH), "--output_dir", os.path.join(tmp, "eval_m2ae"))
+    got = pp.read_launches()
+    want = {k: v * EVAL_PROBE_BATCHES for k, v in M2AE_ENCODER_LAUNCHES.items()}
+    check(got == want and 0.0 <= both <= 1.0, f"--svm_scales both {both}, launches {got}")
+    add(got)
+    res["svm_scales_both"] = {"acc": both, "wall_s": wall, "launches": got}
+
+    # ---- --probe seg on the seg CLI's ckpt/best
+    seg_best, seg_config, seg_log = ckpts["segmentation"]
+    pp.reset_launches()
+    miou, wall = _evaluate_cli("--config", seg_config, "--probe", "seg", "--ckpt", seg_best,
+                               "--synthetic", "--synthetic_samples",
+                               str(max(SEG_SAMPLES // 4, 32)), "--output_dir",
+                               os.path.join(tmp, "eval_seg"))
+    got = pp.read_launches()
+    record = max(seg_log, key=lambda r: r["instance_miou"])
+    check(abs(miou["instance_miou"] * 100 - record["instance_miou"]) < 1e-9
+          and abs(miou["class_miou"] * 100 - record["class_miou"]) < 1e-9,
+          f"evaluate mIoU {miou} against the seg CLI's {record}")
+    want = {k: v * -(-max(SEG_SAMPLES // 4, 32) // SEG_BATCH)
+            for k, v in SEG_LAUNCHES_PER_STEP.items()}
+    check(got == want, f"--probe seg launches {got}, expected {want}")
+    add(got)
+    res["seg"] = {"instance_miou": miou["instance_miou"], "class_miou": miou["class_miou"],
+                  "seg_cli_recorded": [record["instance_miou"], record["class_miou"]],
+                  "wall_s": wall, "launches": got}
+
+    # ---- cli/visualize.py --heatmap; the dumps on the card against the CPU
+    add(_visualize_checks(tmp, seed, res))
+    res["launches"] = dict(launches)
+    quantized = _int8_checks(tmp, best, config, res)
+    ema = _quantize_ema_checks(res)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": launches, "launches_quantized": quantized, "launches_quantize_ema": ema}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
-          "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae")
+          "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae",
+          "evaluate")
 
 
 def main() -> None:
@@ -2684,10 +3089,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         options = (phase_step_options(env, trained, tmp) if "step_options" in phases
                    else None)
-    tuned = segmented = few = m2ae = None
+    tuned = segmented = few = m2ae = evaluated = None
     with tempfile.TemporaryDirectory() as tmp:
         # one short epoch of the port's GM3D pretrain CLI: the weights of all three
-        if {"finetune", "segmentation", "fewshot"} & set(phases):
+        if {"finetune", "segmentation", "fewshot", "evaluate"} & set(phases):
             pretrained = _gm3d_pretrain_ckpt(tmp, 128, 64)
         if "finetune" in phases:
             tuned = phase_finetune(env, tmp, pretrained, cli_args.seed)
@@ -2698,6 +3103,9 @@ def main() -> None:
         if "m2ae" in phases:
             # on phase finetune's ModelNet directory where it ran
             m2ae = phase_m2ae(env, tmp, cli_args.seed)
+        if "evaluate" in phases:
+            # on the checkpoints of the phases above where they ran
+            evaluated = phase_evaluate(env, tmp, pretrained, cli_args.seed)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -2722,6 +3130,11 @@ def main() -> None:
         # the Point-M2AE pretrain CLI's run and its classifier's finetune: FPS and KNN only
         kern["launches_m2ae"] = m2ae["launches"][kern["name"]]
         kern["launches_m2ae_finetune"] = m2ae["launches_finetune"][kern["name"]]
+        # every evaluate probe and visualize (FPS and KNN only); int8 serving (one batch);
+        # the quantize_ema step (the GM3D step's kernels, its EMA pass's in fp32)
+        kern["launches_evaluate"] = evaluated["launches"][kern["name"]]
+        kern["launches_quantized"] = evaluated["launches_quantized"][kern["name"]]
+        kern["launches_quantize_ema"] = evaluated["launches_quantize_ema"][kern["name"]]
         if kern["name"] == "knn":
             # the feature propagation's shape: 2,048 queries on 128 references, k 3
             kern["seg_propagation"] = segmented["knn_propagation"]

@@ -24,6 +24,10 @@
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/seg_shapenetpart.yaml \
       --ckpt experiments/seg/ckpt/best --mode segmentation --out seg.gm3dx --export_batch 16
 
+  # dynamic-int8 (w8a8) weights and products, any mode: a smaller artifact
+  python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/finetune_modelnet.yaml \
+      --ckpt experiments/ft/ckpt/best --quantize int8 --out model_int8.gm3dx
+
 ``--ckpt`` takes either of two forms:
 
   - a checkpoint ROOT written by the port's CLIs (``ckpt/checkpoint.py``):
@@ -55,6 +59,7 @@ from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.data.datasets import SEG_CLASSES
 from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS
 from gm3d_tpu_torch.serve.export import save_artifact
+from gm3d_tpu_torch.serve.quantize import quantize_module
 from gm3d_tpu_torch.utils import get_logger
 from gm3d_tpu_torch.utils.device import dtype_name, resolve_device
 
@@ -76,6 +81,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="points per input cloud (default: the config's "
                         "npoints; FPS to npoints runs inside the forward "
                         "when larger; a segmentation export takes npoints only)")
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="dynamic-int8 w8a8 weights and products of every dense layer "
+                        "(serve/quantize.py); the fused kernels are not on the serving path")
     return p.parse_args(argv)
 
 
@@ -142,6 +150,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         logger.warning(f"no --ckpt: exporting RANDOM weights (seed {args.seed})")
         model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    if args.quantize == "int8":
+        quantize_module(model)
 
     manifest = {
         "mode": args.mode,
@@ -150,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         "npoints": npoints,
         "ckpt_step": step,
         "compute_dtype": dtype_name(dtype),
-        "quantization": "none",
+        "quantization": args.quantize or "none",
     }
     if args.mode == "segmentation":
         # the category -> parts table, so that the server serves the
@@ -160,7 +170,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     path = save_artifact(args.out, model, manifest,
                          (args.export_batch, n_input, 3), device)
     logger.info(f"exported {args.mode} ({model_name}) -> {path} "
-                f"platforms={[device.type]}")
+                f"platforms={[device.type]} quantization={args.quantize or 'none'}")
     return path
 
 

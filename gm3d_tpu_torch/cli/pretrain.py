@@ -165,7 +165,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "the first --profile_steps steps into this directory")
     p.add_argument("--profile_steps", type=int, default=5)
     p.add_argument("--shared_opt", default=True, action=argparse.BooleanOptionalAction)
-    p.add_argument("--quantize_ema", action="store_true")
+    p.add_argument("--quantize_ema", action="store_true",
+                   help="run the grad-free EMA forward's dense products as dynamic-int8 "
+                        "w8a8 (serve/quantize.py); only the mask ranking sees the noise. "
+                        "Refused with --learn_feature_loss ema")
     return p.parse_args(argv)
 
 
@@ -174,7 +177,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 # make_train_loader
 NOT_PORTED = (
     (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
-    (lambda a: a.quantize_ema, "--quantize_ema", "9"),
 )
 
 
@@ -374,7 +376,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                          args.shared_learnable_tokens, args.relative,
                                          distill_mode=args.learn_feature_loss,
                                          shared_opt=args.shared_opt,
-                                         accum_steps=args.accum_iter, device=dev)
+                                         accum_steps=args.accum_iter,
+                                         quantize_ema=args.quantize_ema, device=dev)
         keys = METRIC_KEYS
         feat_model = student
 

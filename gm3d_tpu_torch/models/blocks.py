@@ -59,6 +59,44 @@ def fused_attention_scope(enabled: bool = True):
         _FUSED_ATTENTION.reset(token)
 
 
+# Call-time interceptor of every ``Dense`` and ``PointConv`` product: inside
+# ``dense_interceptor(fn)`` each of them returns ``fn(module, x, weight)``
+# (``weight`` the 2-D ``(out, in)`` view) instead of its float product. The
+# dynamic-int8 route of ``serve/quantize.py::quantized_dense`` is the one
+# user, as ``nn.intercept_methods`` is the JAX package's. The fused attention
+# and patch-embed routes read the weights themselves and stay float, as the
+# JAX package's fused routes escape its interceptor. A context variable, like
+# ``_FUSED_ATTENTION``.
+_DENSE_INTERCEPTOR: contextvars.ContextVar = contextvars.ContextVar(
+    "gm3d_dense_interceptor", default=None)
+
+
+@contextlib.contextmanager
+def dense_interceptor(fn):
+    """Route every ``Dense`` / ``PointConv`` product through ``fn(module, x,
+    weight)`` inside this scope."""
+    token = _DENSE_INTERCEPTOR.set(fn)
+    try:
+        yield
+    finally:
+        _DENSE_INTERCEPTOR.reset(token)
+
+
+def _linear(module: nn.Module, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The product of ``Dense`` and ``PointConv``: the interceptor's where one
+    is set, else input, weight and bias rounded to the compute dtype. An int8
+    weight (``serve/quantize.py::quantize_module``) has no float product."""
+    intercept = _DENSE_INTERCEPTOR.get()
+    if intercept is not None:
+        return intercept(module, x, weight)
+    if weight.dtype == torch.int8:
+        raise RuntimeError("an int8-quantized layer runs inside "
+                           "gm3d_tpu_torch.serve.quantize.quantized_dense()")
+    dt = module.compute_dtype
+    bias = None if module.bias is None else module.bias.to(dt)
+    return F.linear(x.to(dt), weight.to(dt), bias)
+
+
 def trunc_normal_(tensor: torch.Tensor, generator: Optional[torch.Generator] = None,
                   std: float = INIT_STD) -> torch.Tensor:
     return nn.init.trunc_normal_(tensor, std=std, a=-2 * std, b=2 * std,
@@ -75,9 +113,7 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return _linear(self, x, self.weight)
 
 
 class PointConv(nn.Module):
@@ -97,8 +133,7 @@ class PointConv(nn.Module):
         trunc_normal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight[..., 0].to(dt), self.bias.to(dt))
+        return _linear(self, x, self.weight[..., 0])
 
 
 class LayerNorm(nn.LayerNorm):

@@ -22,10 +22,17 @@ forward is the frozen (mean+max)-pooled encoder the probes consume; the
 segmentation forward takes the points and each cloud's object category and
 returns per-point part logits, with no FPS (the input is the model's point
 count). Its manifest records the category input under ``extra_inputs``.
+
+An int8 artifact (manifest ``"quantization": "int8"``, ``cli/export_model.py
+--quantize int8``) holds the int8 weights and per-channel scales of every
+dense layer (``serve/quantize.py``); ``load_artifact`` converts the rebuilt
+model to that layout before its strict load and runs the forward inside
+``quantized_dense()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import zipfile
@@ -37,12 +44,14 @@ from torch import nn
 
 from gm3d_tpu_torch.config.registry import build_model_from_cfg
 from gm3d_tpu_torch.ops.fps import fps
+from gm3d_tpu_torch.serve.quantize import quantize_module, quantized_dense
 from gm3d_tpu_torch.utils.device import dtype_from_name, resolve_device
 
 FORMAT_VERSION = 1
 _MANIFEST = "manifest.json"
 _WEIGHTS = "weights.pt"
 MODES = ("classifier", "features", "segmentation")
+QUANTIZATIONS = ("none", "int8")
 
 
 def build_classifier_fn(model: nn.Module, npoints: int) -> Callable:
@@ -165,6 +174,13 @@ def load_artifact(path: str, device: "str | torch.device" = "cuda"
     # refuse an unserved mode, or a seg manifest without its table, before any work
     module_fn = _build_fn(manifest.get("mode"), model, manifest["npoints"])
     _check_parts_table(manifest)
+    quantization = manifest.get("quantization", "none")
+    if quantization not in QUANTIZATIONS:
+        raise ValueError(f"unsupported artifact quantization {quantization!r} "
+                         f"(expected one of {list(QUANTIZATIONS)})")
+    int8 = quantization == "int8"
+    if int8:  # the int8 layout first, so that the strict load matches it
+        quantize_module(model)
     state = torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
     model.to(device).eval()
@@ -172,7 +188,7 @@ def load_artifact(path: str, device: "str | torch.device" = "cuda"
     extra_specs = manifest.get("extra_inputs", [])
 
     def device_call(points: torch.Tensor, *extra: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with torch.inference_mode(), (quantized_dense() if int8 else contextlib.nullcontext()):
             return module_fn(points, *extra)
 
     def fn(points, *extra) -> np.ndarray:

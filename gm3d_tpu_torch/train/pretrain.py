@@ -28,12 +28,15 @@ The Point-M2AE steps, ``::make_m2ae_train_step`` (random coarse mask) and
 predictor and the learning loss), share ONE hierarchy a step (``build_hierarchy``:
 three FPS and three KNN launches) between their passes.
 
-Not ported yet (each raises ``NotImplementedError``): ``distill_mode='clip'``
-and ``quantize_ema``.
+``quantize_ema`` runs the EMA pass's dense products as dynamic int8
+(``serve/quantize.py::quantized_dense``); the fused patch embed and attention
+of that pass stay fp32 on the card, as the JAX step's fused routes do. Not
+ported yet (raises ``NotImplementedError``): ``distill_mode='clip'``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -49,6 +52,7 @@ from gm3d_tpu_torch.models.pointmae import PointMAE, take_groups
 from gm3d_tpu_torch.ops.chamfer import chamfer_group
 from gm3d_tpu_torch.ops.group import Grouped, group_points
 from gm3d_tpu_torch.ops.patch_embed import fused_patch_embed, params_from_module
+from gm3d_tpu_torch.serve.quantize import quantized_dense
 from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.optim import global_norm
 from gm3d_tpu_torch.train.state import TrainState, ema_update
@@ -225,7 +229,10 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     the optimizer updates on every ``accum_steps``-th call, and the EMA moves
     on those calls only; the student's BatchNorm statistics move on every
     call. ``remat_student``: the student's activations are recomputed in the
-    backward (``_Remat``).
+    backward (``_Remat``). ``quantize_ema``: the EMA pass's dense products
+    are dynamic int8 (w8a8); only the mask's ranking sees the noise, so it is
+    refused with ``distill_mode='ema'``, where the EMA features are targets.
+    Gradients, the student and the teacher stay float.
 
     ``step`` returns ``(state, metrics)``: the six scalars of the JAX step as
     0-d tensors on the device (no host synchronisation inside the step);
@@ -236,11 +243,15 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     """
     if distill_mode == "clip":
         raise NotImplementedError("distill_mode='clip' waits for the port of models/clip.py")
-    if quantize_ema:
-        raise NotImplementedError("quantize_ema waits for the port of serve/quantize.py")
     if distill_mode not in ("dino", "ema", "none"):
         raise ValueError(f"distill_mode must be 'dino', 'ema', 'none' or 'clip', "
                          f"got {distill_mode!r}")
+    if quantize_ema and distill_mode == "ema":
+        raise ValueError(
+            "quantize_ema is not allowed with distill_mode='ema': the EMA "
+            "features are the distillation targets there, so quantization "
+            "noise would enter the loss, not just the mask ranking")
+    ema_ctx = quantized_dense if quantize_ema else contextlib.nullcontext
     if getattr(optimizer, "accum_steps", 1) != accum_steps:
         raise ValueError(f"the step accumulates {accum_steps} micro-batches, the optimizer "
                          f"{getattr(optimizer, 'accum_steps', 1)}")
@@ -299,7 +310,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             # this pass exists to feed the mask (and, in 'ema' mode, the
             # feature targets); its reconstruction decoder is dead compute
             zeros_mask = torch.zeros((batch, student.num_group), dtype=torch.bool, device=dev)
-            with fused_attention_scope(use_fused_attention):
+            with ema_ctx(), fused_attention_scope(use_fused_attention):
                 outs_ema = ema(samples, zeros_mask, 0, shared_learnable_tokens,
                                grouped=grouped, tokens=ema_tokens, loss_pred_only=trim_ema)
             mask = geometric_mask(generator, outs_ema["loss_pred"], num_mask,

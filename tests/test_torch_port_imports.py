@@ -72,6 +72,15 @@ M2AE_MODULES = {"gm3d_tpu_torch.models.m2ae", "gm3d_tpu_torch.train.pretrain",
                 "gm3d_tpu_torch.cli.export_model", "gm3d_tpu_torch.config.registry"}
 
 
+# offline evaluation, visualisation and int8 quantization
+EVAL_QUANT_MODULES = {
+    "gm3d_tpu_torch.cli.evaluate", "gm3d_tpu_torch.cli.visualize", "gm3d_tpu_torch.eval.knn",
+    "gm3d_tpu_torch.eval.linear_probe", "gm3d_tpu_torch.eval.visualize",
+    "gm3d_tpu_torch.utils.ply", "gm3d_tpu_torch.utils.plot_logs",
+    "gm3d_tpu_torch.serve.quantize",
+}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -83,9 +92,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(_IMPORT_ALL, PATH="", CUDA_HOME="", CUDA_PATH="")
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
-    assert int(lines["IMPORTED"]) >= 53
+    assert int(lines["IMPORTED"]) >= 61
     assert (PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES | SEG_FEWSHOT_MODULES
-            | M2AE_MODULES <= set(lines["NAMES"].split()))
+            | M2AE_MODULES | EVAL_QUANT_MODULES <= set(lines["NAMES"].split()))
     assert lines["FOREIGN"] == "[]"
 
 
@@ -297,6 +306,23 @@ def test_m2ae_entry_points_default_to_cuda_and_say_so(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             make(model, optimizer)
         make(model, optimizer, device="cpu")  # asked for, the CPU is taken
+
+
+def test_evaluate_and_visualize_default_to_cuda_and_say_so(tmp_path):
+    """The evaluate and visualize CLIs raise without a GPU unless given
+    ``--device cpu``, before they read a checkpoint or write a file."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli import evaluate, visualize
+
+    for entry in (lambda: evaluate.main(["--config", "configs/pointmae/finetune_modelnet.yaml",
+                                         "--synthetic", "--output_dir", str(tmp_path)]),
+                  lambda: visualize.main(["--config", "configs/pointmae/config.yaml",
+                                          "--synthetic", "--output_dir", str(tmp_path),
+                                          "--out_dir", str(tmp_path / "vis")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert not (tmp_path / "vis").exists()
 
 
 @pytest.mark.parametrize("wrapper", ["patch_embed", "attention_fwd", "attention_bwd"])

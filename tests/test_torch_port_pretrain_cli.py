@@ -244,9 +244,29 @@ def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
 
 
 NOT_PORTED = [
-    ["--learn_feature_loss", "clip"], ["--quantize_ema"], ["--num_devices", "2"],
-    ["--native_loader"],
+    ["--learn_feature_loss", "clip"], ["--num_devices", "2"], ["--native_loader"],
 ]
+
+
+@pytest.mark.parametrize("loss", ["ema", "dino"])
+def test_quantize_ema_is_refused_under_ema_and_trains_under_dino(loss, monkeypatch, tmp_path):
+    """``--quantize_ema`` (ported): with ``--learn_feature_loss ema`` the step
+    refuses it with the JAX step's ``ValueError`` before any epoch; under
+    ``dino`` one epoch of the small models trains with finite metrics."""
+    _small_models(monkeypatch)
+    _reset_gm3d_loggers()
+    flags = ["--config", "configs/pointmae/config.yaml", "--synthetic", "--quantize_ema",
+             "--learn_feature_loss", loss, "--epochs", "1", "--batch_size", "4",
+             "--synthetic_samples", "8", "--num_workers", "0", "--device", "cpu",
+             "--output_dir", str(tmp_path)]
+    if loss == "ema":
+        with pytest.raises(ValueError, match="quantize_ema is not allowed"):
+            cli.main(flags)
+        assert not (tmp_path / "log.txt").exists()
+        return
+    records = cli.main(flags)
+    assert len(records) == 1 and records[0]["steps"] == 2
+    assert all(np.isfinite(records[0][k]) for k in ("loss", "loss_mse", "loss_chfr", "loss_learn"))
 
 
 def test_the_legacy_variant_is_refused_for_other_families(tmp_path):

@@ -285,12 +285,32 @@ def test_other_distill_modes_one_step(mode):
     assert (got["loss_chfr"] == 0.0) if mode == "ema" else (got["loss_mse"] == 0.0)
 
 
-@pytest.mark.parametrize("option", [{"distill_mode": "clip"}, {"quantize_ema": True}])
+@pytest.mark.parametrize("option", [{"distill_mode": "clip"}])
 def test_deferred_options_raise(option):
     student = GM3DStudent(**SMALL)
     optimizer = build_gm3d_shared_optimizer(student, LR)
     with pytest.raises(NotImplementedError):
         tp.make_gm3d_train_step(student, PointMAE(**SMALL), optimizer, device="cpu", **option)
+
+
+@pytest.mark.parametrize("distill_mode", ["ema", "dino"])
+def test_quantize_ema_is_refused_under_ema_and_runs_under_dino(distill_mode):
+    """``quantize_ema`` (ported; held against the JAX step in
+    ``tests/test_torch_port_quantize.py``): refused with the JAX step's
+    ``ValueError`` where the EMA features are targets, a finite step under
+    ``dino``."""
+    student, teacher = GM3DStudent(**SMALL), PointMAE(**SMALL)
+    optimizer = build_gm3d_shared_optimizer(student, LR)
+    if distill_mode == "ema":
+        with pytest.raises(ValueError, match="quantize_ema is not allowed"):
+            tp.make_gm3d_train_step(student, teacher, optimizer, distill_mode="ema",
+                                    quantize_ema=True, device="cpu")
+        return
+    state = create_train_state(student, optimizer, with_ema=True)
+    step = tp.make_gm3d_train_step(student, teacher, optimizer, quantize_ema=True, device="cpu")
+    _, metrics = step(state, torch.from_numpy(_clouds(3)), torch.Generator().manual_seed(0),
+                      SCALARS)
+    assert sorted(metrics) == sorted(KEYS) and all(np.isfinite(float(v)) for v in metrics.values())
 
 
 def _pointmae_step_with_the_emd_loss():
