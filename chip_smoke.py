@@ -17,11 +17,18 @@ Phases, each printing one JSON line when it ends:
               times at the main paths' shapes (FPS and KNN: ``ms`` one call
               through the wrapper, as for every kernel, and ``graph_ms`` from
               CUDA graphs, since their launches are shorter than the
-              wrapper's host time)
+              wrapper's host time; ``host``, the host time of a wrapper call
+              through the custom op's dispatcher and of its CUDA
+              implementation called directly)
   serve       exports the full-width PointTransformer classifier (random
-              weights from a seed) through the export CLI, serves it over
-              HTTP with dynamic batching, checks the answers against the
-              same artifact on the CPU, and counts kernel launches
+              weights from a seed) through the export CLI as one
+              ``torch.export`` artifact for ``cpu,cuda``, serves it over HTTP
+              with dynamic batching, checks the answers against the same
+              artifact on the CPU, and counts kernel launches; a cuda-only
+              artifact is refused on the CPU; the kernels' launches inside one
+              call of the loaded program; the program against the eager module
+              it was traced from at B 128 in fp32, bf16 and int8 (equal
+              outputs, CUDA-event ms, host ms of a call)
   throughput  clouds per second of ``ServingModel.predict``, fp32 and bf16
   train       builds the GM3D student, its EMA copy and the frozen Point-MAE
               teacher at full width (random weights from a seed), takes six
@@ -175,6 +182,7 @@ features, the phase ``finetune``'s clouds, the phases ``segmentation``'s,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import io
 import itertools
@@ -215,9 +223,9 @@ from gm3d_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from gm3d_tpu_torch.ops import patch_embed as pe  # noqa: E402
 from gm3d_tpu_torch.ops import tile_mma as tm  # noqa: E402
 from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS  # noqa: E402
-from gm3d_tpu_torch.ops.fps import fps_gather, fps_indices, fps_indices_torch  # noqa: E402
-from gm3d_tpu_torch.ops.knn import (knn_indices, knn_indices_torch, knn_overflow_count,  # noqa: E402
-                                    knn_select_emulated)
+from gm3d_tpu_torch.ops.fps import _fps_cuda, fps_gather, fps_indices, fps_indices_torch  # noqa: E402
+from gm3d_tpu_torch.ops.knn import (_knn_cuda, knn_indices, knn_indices_torch,  # noqa: E402
+                                    knn_overflow_count, knn_select_emulated)
 from gm3d_tpu_torch.scripts import profile_pretrain as pp  # noqa: E402
 from gm3d_tpu_torch.serve.runner import ServingModel  # noqa: E402
 from gm3d_tpu_torch.serve.server import make_server  # noqa: E402
@@ -288,6 +296,18 @@ def graph_ms(fn, launches: int = 10) -> float:
         for _ in range(launches):
             fn()
     return cuda_ms(graph.replay) / launches
+
+
+def per_call_us(fn, calls: int = 200) -> float:
+    """Wall time of one ``fn()`` in microseconds over ``calls`` back-to-back
+    calls and one synchronisation: the host's time where it is the longer."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -761,17 +781,29 @@ def phase_kernels() -> list[dict]:
     # given, and at least one comparison to select; r2 once per point (5)
     knn_bound, knn_by = bound(b * n * 12 + b * g * 12 + b * g * k * 8,
                               9.0 * b * g * n + 5.0 * b * n)
+    # the host time of a wrapper call through the custom op's dispatcher
+    # against the op's CUDA implementation called directly (a call's wall time
+    # over 200 back-to-back calls: longer than the kernels, so the host's)
+    dispatch = {
+        "fps": {"wrapper_us": per_call_us(lambda: fps_indices(pts, g)),
+                "cuda_impl_us": per_call_us(lambda: _fps_cuda(pts, g))},
+        "knn": {"wrapper_us": per_call_us(lambda: knn_indices(pts, centers, k)),
+                "cuda_impl_us": per_call_us(lambda: _knn_cuda(pts, centers, k))}}
+    for d in dispatch.values():
+        d["dispatch_us"] = d["wrapper_us"] - d["cuda_impl_us"]
     timed = [
         {"name": "fps", "route": "cuda", "source": "gm3d_tpu_torch/csrc/fps.cu",
-         "replaces": "gm3d_tpu/ops/fps.py:170", "shape": [b, n, g],
+         "replaces": "gm3d_tpu/ops/fps.py:170", "also_replaces": "gm3d_tpu/ops/fps.py:97",
+         "op": "gm3d::fps", "shape": [b, n, g],
          "max_abs_err": fps_err, "ms": fps_ms, "plain_ms": fps_plain,
          "bound_ms": fps_bound, "bound_by": fps_by, "library_ms": None,
-         "graph_ms": fps_graph_ms},
+         "graph_ms": fps_graph_ms, "host": dispatch["fps"]},
         {"name": "knn", "route": "cuda", "source": "gm3d_tpu_torch/csrc/knn.cu",
-         "replaces": "gm3d_tpu/ops/knn.py:76", "shape": [b, n, g, k],
+         "replaces": "gm3d_tpu/ops/knn.py:76", "op": "gm3d::knn", "shape": [b, n, g, k],
          "max_abs_err": knn_err, "ms": knn_ms, "plain_ms": knn_plain,
          "bound_ms": knn_bound, "bound_by": knn_by, "library_ms": knn_lib,
-         "graph_ms": knn_graph_ms, "library_graph_ms": knn_lib_graph},
+         "graph_ms": knn_graph_ms, "library_graph_ms": knn_lib_graph,
+         "host": dispatch["knn"]},
     ]
     # other shapes the package meets (not on the main path; times only)
     big = cloud(32, 8192)
@@ -828,7 +860,9 @@ def phase_serve(tmp: str) -> dict:
     rng = np.random.default_rng(1)
     clouds = rng.standard_normal((300, NPOINTS, 3)).astype(np.float32)
     singles = rng.standard_normal((64, NPOINTS, 3)).astype(np.float32)
-    art = _export(os.path.join(tmp, "cls_fp32.gm3dx"),
+    # one artifact for both devices: the card serves it through the kernels,
+    # the CPU through the plain versions, and the two must agree
+    art = _export(os.path.join(tmp, "cls_fp32.gm3dx"), "--platforms", "cpu,cuda",
                   "--export_batch", str(SERVE_BATCH), "--input_points", str(NPOINTS))
 
     server = make_server(art, port=0, batch_wait_ms=5.0, dynamic_batching=True,
@@ -844,7 +878,7 @@ def phase_serve(tmp: str) -> dict:
         check(status == 200 and health == {"status": "ok"}, health)
         status, info = _http(base + "/info")
         check(status == 200 and info["input_shape"] == [SERVE_BATCH, NPOINTS, 3], info)
-        check(info["model"] == "PointTransformer" and info["platforms"] == ["cuda"], info)
+        check(info["model"] == "PointTransformer" and info["platforms"] == ["cpu", "cuda"], info)
         status, one = _http(base + "/predict",
                             json.dumps({"points": clouds[0].tolist()}).encode())
         check(status == 200 and np.asarray(one["outputs"]).shape == (40,), status)
@@ -908,20 +942,118 @@ def phase_serve(tmp: str) -> dict:
     same = float((out16.argmax(-1) == out32.argmax(-1)).mean())
     if same < 0.9:
         raise AssertionError(f"bf16 and fp32 artifacts agree on only {same:.0%} of clouds")
+    arts = {}  # the B 128 artifacts of _program_checks, by dtype
+    # exported for the card only: the CPU is refused
+    try:
+        ServingModel(art32, device="cpu")
+    except ValueError as e:
+        check("re-export with --platforms cpu" in str(e), e)
+    else:
+        raise AssertionError("a cuda-only artifact was served on the CPU")
 
     res = {"phase": "serve", "requests": 2 + 1 + 1 + len(singles) + 1,
            "clouds": 1 + 300 + len(singles), "launches": launches,
            "device_calls_for_64_concurrent": coalesced_calls,
-           "max_abs_err_vs_cpu": err, "bf16_argmax_agreement": same}
+           "max_abs_err_vs_cpu": err, "artifact_platforms": info["platforms"],
+           "cuda_only_refused_on_cpu": True, "bf16_argmax_agreement": same,
+           **_program_checks(tmp, art, art32, arts)}
     emit(res)
-    return {"launches": launches, "artifact": art}
+    return {"launches": launches, "artifact": art, "artifact_bf16": arts["bf16"]}
 
 
-def phase_throughput(tmp: str, art32: str) -> None:
+def host_ms(fn, runs: int = 20) -> float:
+    """Median host time of one ``fn()`` in ms, the card idle at its start:
+    the time until the call returns, its work enqueued and not waited for."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _eager_classifier(manifest: dict):
+    """The eager forward the artifact was traced from, rebuilt from its
+    manifest (the export CLI's seed-0 weights, the int8 layout for an int8
+    artifact), in this script only."""
+    from gm3d_tpu_torch.config import build_model_from_cfg
+    from gm3d_tpu_torch.serve.export import build_classifier_fn
+    from gm3d_tpu_torch.serve.quantize import quantize_module, quantized_dense
+    from gm3d_tpu_torch.utils.device import dtype_from_name
+
+    model = build_model_from_cfg(manifest["model_cfg"],
+                                 dtype=dtype_from_name(manifest["compute_dtype"]))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    int8 = manifest["quantization"] == "int8"
+    if int8:
+        quantize_module(model)
+    fn = build_classifier_fn(model.to(DEV).eval(), manifest["npoints"])
+
+    def call(x):
+        with torch.inference_mode(), (quantized_dense() if int8 else contextlib.nullcontext()):
+            return fn(x)
+
+    return call
+
+
+def _program_checks(tmp: str, art: str, art_8192: str, arts: dict) -> dict:
+    """The FPS and KNN kernels run inside the loaded program (the counts rise
+    across one call by a served batch's launches); the program's forward
+    against the eager module it was traced from at B 128 in fp32, bf16 and
+    int8 (equal outputs; CUDA-event ms, median of 20, in the order eager,
+    program, program, eager, the program as ``ServingModel.device_call`` calls
+    it; host ms of a call through ``program.module()``, of the program's graph
+    called directly (``device_call``) and of the eager forward). ``arts``
+    gets the B 128 artifact of each dtype."""
+    rng = np.random.default_rng(3)
+    out = {"program_launches_one_call": {}}
+    for name, path, batch, n, want in (("1024_points", art, SERVE_BATCH, NPOINTS, (1, 1)),
+                                       ("8192_points", art_8192, 32, 8192, (2, 1))):
+        served = ServingModel(path, device="cuda")
+        x = torch.from_numpy(rng.standard_normal((batch, n, 3)).astype(np.float32)).to(DEV)
+        served.device_call(x)
+        torch.cuda.synchronize()
+        fps_indices.launches = knn_indices.launches = 0
+        served.device_call(x)
+        torch.cuda.synchronize()
+        got = (fps_indices.launches, knn_indices.launches)
+        check(got == want, f"{name}: launches {got} in one call of the program, expected {want}")
+        out["program_launches_one_call"][name] = {"fps": got[0], "knn": got[1]}
+    x = torch.from_numpy(rng.standard_normal((SERVE_BATCH, NPOINTS, 3)).astype(np.float32)).to(DEV)
+    timing = {}
+    for dtype, extra in (("fp32", None), ("bf16", "--bf16"), ("int8", "--quantize int8")):
+        path = arts[dtype] = art if extra is None else _export(
+            os.path.join(tmp, f"cls_{dtype}_b128.gm3dx"), *extra.split(),
+            "--export_batch", str(SERVE_BATCH), "--input_points", str(NPOINTS))
+        served = ServingModel(path, device="cuda")
+        # device_call: the program's graph called directly; module(): with its guards
+        program, module = served.device_call, served.program.module()
+        eager = _eager_classifier(served.manifest)
+        with torch.inference_mode():
+            a, b, c = program(x), module(x), eager(x)
+            gap = float((a - c).abs().max())
+            gap_direct = float((a - b).abs().max())
+            check(gap_direct <= 1e-5, f"{dtype}: the lifted graph differs from the module "
+                  f"by {gap_direct}")
+            check(gap <= 2e-3, f"{dtype}: the program differs from its eager module by {gap}")
+            eager_1, program_1 = cuda_ms(lambda: eager(x)), cuda_ms(lambda: program(x))
+            program_2, eager_2 = cuda_ms(lambda: program(x)), cuda_ms(lambda: eager(x))
+            hosts = {"program_module": host_ms(lambda: module(x)),
+                     "program_direct": host_ms(lambda: program(x)),
+                     "eager": host_ms(lambda: eager(x))}
+        timing[dtype] = {"program_ms": [program_1, program_2], "eager_ms": [eager_1, eager_2],
+                         "host_ms": hosts, "program_vs_eager_max_abs": gap,
+                         "direct_vs_module_max_abs": gap_direct,
+                         "graph_nodes": len(served.program.graph.nodes)}
+    return {**out, "program_vs_eager_b128": timing}
+
+
+def phase_throughput(art32: str, art16: str) -> None:
     rng = np.random.default_rng(2)
     batch = rng.standard_normal((SERVE_BATCH, NPOINTS, 3)).astype(np.float32)
-    art16 = _export(os.path.join(tmp, "cls_bf16_1024.gm3dx"), "--bf16",
-                    "--export_batch", str(SERVE_BATCH), "--input_points", str(NPOINTS))
     out = {"phase": "throughput", "batch": SERVE_BATCH}
     for name, art in (("fp32", art32), ("bf16", art16)):
         model = ServingModel(art, device="cuda")
@@ -2871,9 +3003,9 @@ def _int8_checks(tmp: str, ckpt: str, config: str, res: dict) -> dict:
     sizes = {k: os.path.getsize(v) for k, v in arts.items()}
     fn, manifest = load_artifact(arts["int8"], device="cuda")
     check(manifest["quantization"] == "int8", manifest["quantization"])
-    # every (K, N) of the int8 model's layers, rows that pad (37) and rows that do not (4096)
-    shapes = sorted({(int(m.weight.shape[1]), int(m.weight.shape[0]))
-                     for m in fn.module.modules() if isinstance(m, q.QUANT_LAYERS)})
+    # every (K, N) of the program's int8 weights, rows that pad (37) and rows that do not (4096)
+    shapes = sorted({(int(w.shape[1]), int(w.shape[0]))
+                     for w in fn.program.state_dict.values() if w.dtype == torch.int8})
     gen = torch.Generator().manual_seed(5)
     accum = []
     for k, n in shapes:
@@ -3076,7 +3208,7 @@ def main() -> None:
         if "serve" in phases:
             served = phase_serve(tmp)
         if "throughput" in phases:
-            phase_throughput(tmp, served["artifact"])
+            phase_throughput(served["artifact"], served["artifact_bf16"])
     trained = phase_train(env) if "train" in phases else None
     cli = phase_pretrain_cli(env, trained) if "pretrain_cli" in phases else None
     with tempfile.TemporaryDirectory() as tmp:

@@ -28,6 +28,10 @@
   python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/finetune_modelnet.yaml \
       --ckpt experiments/ft/ckpt/best --quantize int8 --out model_int8.gm3dx
 
+  # one artifact that serves on the CPU and on the card (traced on --device)
+  python -m gm3d_tpu_torch.cli.export_model --config configs/pointmae/finetune_modelnet.yaml \
+      --ckpt experiments/ft/ckpt/best --platforms cpu,cuda --out model.gm3dx
+
 ``--ckpt`` takes either of two forms:
 
   - a checkpoint ROOT written by the port's CLIs (``ckpt/checkpoint.py``):
@@ -42,12 +46,17 @@
 
 Either loads with ``strict=True``. A bad path raises ``FileNotFoundError``;
 without ``--ckpt`` the export warns and carries weights drawn from ``--seed``
-(smoke/test use only). Serve the artifact with ``gm3d_tpu_torch.cli.serve``.
+(smoke/test use only). The forward is traced on ``--device`` into a
+``torch.export`` program (``serve/export.py``); the artifact is loadable
+without this package's model code and serves on each of ``--platforms``.
+Serve it with ``gm3d_tpu_torch.cli.serve``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -58,7 +67,14 @@ from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.data.datasets import SEG_CLASSES
 from gm3d_tpu_torch.ops.fps import MAX_POINTS as FPS_MAX_POINTS
-from gm3d_tpu_torch.serve.export import save_artifact
+from gm3d_tpu_torch.serve.export import (
+    build_classifier_fn,
+    build_feature_fn,
+    build_seg_fn,
+    check_platforms,
+    export_forward,
+    save_artifact,
+)
 from gm3d_tpu_torch.serve.quantize import quantize_module
 from gm3d_tpu_torch.utils import get_logger
 from gm3d_tpu_torch.utils.device import dtype_name, resolve_device
@@ -84,6 +100,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="dynamic-int8 w8a8 weights and products of every dense layer "
                         "(serve/quantize.py); the fused kernels are not on the serving path")
+    p.add_argument("--platforms", default=None,
+                   help="comma list out of cpu, cuda: the devices the artifact serves on "
+                        "(default: --device's type); the forward is traced on --device")
     return p.parse_args(argv)
 
 
@@ -109,7 +128,8 @@ def _model_cfg(args, cfg) -> tuple[str, dict]:
 
 def check_input_points(n_input: int, npoints: int, device: torch.device) -> None:
     """Refuses, at export time, an input larger than the FPS kernel takes
-    where the forward would run it on the card."""
+    where the forward would run it on the card (``device``: a platform the
+    artifact serves on)."""
     if device.type == "cuda" and n_input > npoints and n_input > FPS_MAX_POINTS:
         raise ValueError(
             f"--input_points {n_input}: the forward's FPS to {npoints} points runs "
@@ -130,7 +150,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         raise ValueError(
             f"--mode segmentation requires --input_points == npoints ({npoints}); "
             f"got {n_input}")
-    check_input_points(n_input, npoints, device)
+    platforms = check_platforms(args.platforms.split(",") if args.platforms is not None
+                                else (device.type,))
+    for platform in platforms:
+        check_input_points(n_input, npoints, torch.device(platform))
 
     model_name, model_cfg = _model_cfg(args, cfg)
     model = build_model_from_cfg(model_cfg, dtype=dtype)
@@ -150,8 +173,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         logger.warning(f"no --ckpt: exporting RANDOM weights (seed {args.seed})")
         model.reset_parameters(torch.Generator().manual_seed(args.seed))
-    if args.quantize == "int8":
-        quantize_module(model)
+    # the int8 layout on a copy: the traced program holds its int8 weights
+    traced = quantize_module(copy.deepcopy(model)) if args.quantize == "int8" else model
+    traced.to(device).eval()
 
     manifest = {
         "mode": args.mode,
@@ -162,15 +186,26 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         "compute_dtype": dtype_name(dtype),
         "quantization": args.quantize or "none",
     }
+    points = torch.zeros((args.export_batch, n_input, 3), dtype=torch.float32, device=device)
     if args.mode == "segmentation":
+        fn = build_seg_fn(traced)
+        example = (points, torch.zeros((args.export_batch,), dtype=torch.int32, device=device))
         # the category -> parts table, so that the server serves the
         # category-restricted arg-max without this package's tables
         manifest["seg_classes"] = {k: list(v) for k, v in SEG_CLASSES.items()}
         manifest["cls_names"] = sorted(SEG_CLASSES)
-    path = save_artifact(args.out, model, manifest,
-                         (args.export_batch, n_input, 3), device)
+    elif args.mode == "classifier":
+        fn, example = build_classifier_fn(traced, npoints), points
+    else:
+        fn, example = build_feature_fn(traced, npoints), points
+    t0 = time.perf_counter()
+    exported = export_forward(fn, example, platforms, quantize=args.quantize)
+    t1 = time.perf_counter()
+    path = save_artifact(args.out, exported, manifest)
     logger.info(f"exported {args.mode} ({model_name}) -> {path} "
-                f"platforms={[device.type]} quantization={args.quantize or 'none'}")
+                f"platforms={list(exported.platforms)} "
+                f"quantization={args.quantize or 'none'} "
+                f"(traced in {t1 - t0:.2f} s, saved in {time.perf_counter() - t1:.2f} s)")
     return path
 
 

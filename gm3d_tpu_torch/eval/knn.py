@@ -25,9 +25,10 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 def knn_classifier(train_features, train_labels, test_features, test_labels,
                    k: int = 20, temperature: float = 0.07,
                    num_classes: Optional[int] = None) -> float:
-    """Cosine-similarity weighted vote over the k nearest training features:
-    each neighbour votes ``exp(similarity / temperature)`` for its label.
-    Tensors or numpy arrays; the accuracy as a fraction."""
+    """Cosine-similarity weighted vote over the k nearest training features
+    (all of them where ``k`` is above their number): each neighbour votes
+    ``exp(similarity / temperature)`` for its label. Tensors or numpy arrays;
+    the accuracy as a fraction."""
     tr = torch.as_tensor(train_features)
     dev = tr.device
     tr = _normalize(tr.to(torch.float64))
@@ -37,7 +38,8 @@ def knn_classifier(train_features, train_labels, test_features, test_labels,
     if num_classes is None:
         num_classes = int(ytr.max()) + 1
     sim = te @ tr.t()  # (Nte, Ntr)
-    topk_sim, idx = torch.topk(sim, k, dim=1)
+    # at most every training feature, as the JAX package's argsort slice keeps
+    topk_sim, idx = torch.topk(sim, min(k, tr.shape[0]), dim=1)
     weights = torch.exp(topk_sim / temperature)
     votes = torch.zeros((te.shape[0], num_classes), dtype=torch.float64, device=dev)
     votes.scatter_add_(1, ytr[idx], weights)

@@ -17,8 +17,13 @@ Three implementations of the same function:
     registers up to 8192 points and in shared memory above, the arg-max by
     ``redux.sync``), which ``fps_indices`` launches for every CUDA tensor.
 
-``fps_indices`` takes the plain version only for a tensor that lies on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+``fps_indices`` calls the torch custom op ``gm3d::fps`` (``torch.ops.gm3d.fps``),
+registered when this module is imported (no ``nvcc`` needed for that). Its CPU
+implementation is the plain version; its CUDA implementation launches the
+kernel or raises; its fake implementation gives the output's shape, so that
+``torch.export`` records the op as one node of a program, which then runs the
+kernel on the card and the plain version on the CPU. The kernel library is
+built at the first launch.
 """
 
 from __future__ import annotations
@@ -135,15 +140,16 @@ def _block_threads(num_points: int) -> int:
     return min(1024, max(32, -(-threads // 32) * 32))
 
 
-def fps_indices(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Furthest-point-sample indices. xyz: (B, N, 3) -> (B, n_samples) int32."""
-    if xyz.ndim != 3 or xyz.shape[-1] != 3:
-        raise ValueError(f"expected (B, N, 3) points, got {tuple(xyz.shape)}")
+@torch.library.custom_op("gm3d::fps", mutates_args=(), device_types="cpu")
+def _fps_op(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """``gm3d::fps`` on the CPU: the plain version."""
+    return fps_indices_torch(xyz, n_samples)
+
+
+@_fps_op.register_kernel("cuda")
+def _fps_cuda(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """``gm3d::fps`` on the card: the kernel, or raise."""
     batch, num_points, _ = xyz.shape
-    if n_samples < 1:
-        raise ValueError(f"n_samples must be >= 1, got {n_samples}")
-    if not xyz.is_cuda:
-        return fps_indices_torch(xyz, n_samples)
     if num_points > MAX_POINTS:
         raise ValueError(
             f"the FPS kernel holds a cloud in shared memory: at most "
@@ -160,6 +166,21 @@ def fps_indices(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     _build.check_launch(rc, "fps")
     _build.count_launch(fps_indices)
     return out
+
+
+@_fps_op.register_fake
+def _fps_fake(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
+    return xyz.new_empty((xyz.shape[0], n_samples), dtype=torch.int32)
+
+
+def fps_indices(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Furthest-point-sample indices. xyz: (B, N, 3) -> (B, n_samples) int32,
+    through ``torch.ops.gm3d.fps``."""
+    if xyz.ndim != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"expected (B, N, 3) points, got {tuple(xyz.shape)}")
+    if n_samples < 1:
+        raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+    return torch.ops.gm3d.fps(xyz, n_samples)
 
 
 # launches of the CUDA kernel by this process (the plain version never counts)

@@ -20,9 +20,12 @@ Three implementations of the same function:
     a warp per query: a threshold and a candidate sort), which
     ``knn_indices`` launches for every CUDA tensor, whatever its shape.
 
-``knn_indices`` takes the plain version only for tensors that lie on the
-CPU. For CUDA tensors it launches the kernel or raises. ``k > N`` raises
-``ValueError`` on both routes.
+``knn_indices`` calls the torch custom op ``gm3d::knn``
+(``torch.ops.gm3d.knn``, always ``(dist, idx)``; the wrapper picks), registered
+when this module is imported. Its CPU implementation is the plain version, its
+CUDA implementation launches the kernel or raises, and its fake implementation
+gives the outputs' shapes for ``torch.export``. The outputs carry no gradient
+on either device. ``k > N`` raises ``ValueError`` on both routes.
 """
 
 from __future__ import annotations
@@ -239,18 +242,18 @@ def knn_overflow_count(device="cuda") -> int:
     return int(_overflow_counter(device).item())
 
 
-def knn_indices(ref: torch.Tensor, query: torch.Tensor, k: int,
-                return_dist: bool = False):
-    """k nearest neighbours of each query point among the reference points.
+@torch.library.custom_op("gm3d::knn", mutates_args=(), device_types="cpu")
+def _knn_op(ref: torch.Tensor, query: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gm3d::knn`` on the CPU: the plain version, ``(dist, idx)``."""
+    return knn_indices_torch(ref, query, k, return_dist=True)
 
-    ref:   (B, N, 3) reference cloud
-    query: (B, G, 3) query points
-    Returns idx (B, G, k) int32, and squared distances (B, G, k) fp32 first,
-    as ``(dist, idx)``, if ``return_dist``; ascending distance.
-    """
-    _check(ref, query, k)
-    if not ref.is_cuda:
-        return knn_indices_torch(ref, query, k, return_dist)
+
+@_knn_op.register_kernel("cuda")
+def _knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gm3d::knn`` on the card: the kernel, or raise. The count of queries
+    that overflowed the candidate buffer goes to the device's counter
+    (``knn_overflow_count``), outside the op's arguments."""
     batch, num_ref, _ = ref.shape
     num_query = query.shape[1]
     if num_ref > MAX_REF:
@@ -274,6 +277,37 @@ def knn_indices(ref: torch.Tensor, query: torch.Tensor, k: int,
                                                 _sm_count(ref.device)), stream)
         _build.check_launch(rc, "knn")
         _build.count_launch(knn_indices)
+    return dist, idx
+
+
+@_knn_op.register_fake
+def _knn_fake(ref: torch.Tensor, query: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    shape = (query.shape[0], query.shape[1], k)
+    return (query.new_empty(shape, dtype=torch.float32),
+            query.new_empty(shape, dtype=torch.int32))
+
+
+def _no_gradient(ctx, inputs, output) -> None:
+    ctx.mark_non_differentiable(*output)
+
+
+_knn_op.register_autograd(lambda ctx, grad_dist, grad_idx: (None, None, None),
+                          setup_context=_no_gradient)
+
+
+def knn_indices(ref: torch.Tensor, query: torch.Tensor, k: int,
+                return_dist: bool = False):
+    """k nearest neighbours of each query point among the reference points,
+    through ``torch.ops.gm3d.knn``.
+
+    ref:   (B, N, 3) reference cloud
+    query: (B, G, 3) query points
+    Returns idx (B, G, k) int32, and squared distances (B, G, k) fp32 first,
+    as ``(dist, idx)``, if ``return_dist``; ascending distance.
+    """
+    _check(ref, query, k)
+    dist, idx = torch.ops.gm3d.knn(ref, query, k)
     if return_dist:
         return dist, idx
     return idx

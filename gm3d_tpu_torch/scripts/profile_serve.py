@@ -6,19 +6,23 @@
 Exports the full-width PointTransformer classifier with weights drawn from a
 seed, loads it with :class:`ServingModel` on the GPU and prints JSON lines:
 
-  stages    CUDA-event time of each stage of the forward (with
-            ``--input_points`` above the model's 1024, the FPS down to 1024
-            that begins the forward; grouping with its two kernels, patch
-            embed, positional embed, encoder blocks, head), median over the
-            batches
-  profiler  ``torch.profiler`` over a steady window: the device's busy share
-            (sum of kernel time over the window's wall time) and the kernels
-            that take most of it, by name
-  compare   with ``--csrc DIR``: the whole forward and its FPS and grouping
+  stages    CUDA-event time of the served program's forward, and of each
+            stage of the same forward in eager modules rebuilt from the
+            artifact's manifest with the export's seed (the program has no
+            modules to time; with ``--input_points`` above the model's 1024,
+            the FPS down to 1024 that begins the forward; grouping with its
+            two kernels, patch embed, positional embed, encoder blocks,
+            head), median over the batches
+  profiler  ``torch.profiler`` over a steady window of the served program:
+            the device's busy share (sum of kernel time over the window's
+            wall time) and the kernels that take most of it, by name
+  compare   with ``--csrc DIR``: the eager forward and its FPS and grouping
             stages with the FPS and KNN kernels of DIR (another copy of the
             sources, the parent commit's, say) and with the package's, in
             turns (DIR, package, package, DIR). DIR's kernels are built on
             their own and put in the package's place for this process only
+            (the program calls the package's ops, so the eager forward is
+            the one compared)
 
 It needs a CUDA device and fails without one; it measures, asserts nothing.
 """
@@ -40,9 +44,12 @@ import numpy as np
 import torch
 
 from gm3d_tpu_torch.cli import export_model
+from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.ops.fps import fps
 from gm3d_tpu_torch.ops.group import group_points
+from gm3d_tpu_torch.serve.export import build_classifier_fn
 from gm3d_tpu_torch.serve.runner import ServingModel
+from gm3d_tpu_torch.utils.device import dtype_from_name
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                       "configs", "pointmae", "finetune_modelnet.yaml")
@@ -160,28 +167,39 @@ def main() -> None:
         serving.device_call(x)
     torch.cuda.synchronize()
 
-    model = serving.module
-    npoints = serving.manifest["npoints"]
+    manifest = serving.manifest
+    cfg, npoints = manifest["model_cfg"], manifest["npoints"]
     x_model = fps(x, npoints) if serving.npoints > npoints else x
+    # the forward in eager modules, for the stages' hooks: the export's weights
+    model = build_model_from_cfg(cfg, dtype=dtype_from_name(manifest["compute_dtype"]))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    eager = build_classifier_fn(model.cuda().eval(), npoints)
+
+    def eager_call():
+        with torch.inference_mode():
+            return eager(x)
 
     def front_stages() -> dict:
         with torch.inference_mode():
             out = {"group (fps + knn + gather)": _event_ms(
-                lambda: group_points(x_model, model.num_group, model.group_size), args.runs)}
+                lambda: group_points(x_model, cfg["num_group"], cfg["group_size"]), args.runs)}
             if serving.npoints > npoints:
                 out[f"fps {serving.npoints} -> {npoints} + gather"] = _event_ms(
                     lambda: fps(x, npoints), args.runs)
         return out
 
+    total = _event_ms(lambda: serving.device_call(x), args.runs)
+    for _ in range(3):
+        eager_call()
     timer = _StageTimer({"patch_embed": model.encoder, "pos_embed": model.pos_embed,
                          "blocks": model.blocks, "head": model.cls_head_finetune})
-    total = _event_ms(lambda: serving.device_call(x), args.runs)
+    eager_total = _event_ms(eager_call, args.runs)
     stages = timer.close()
     stages.update(front_stages())
-    stages["other"] = total - sum(stages.values())
+    stages["other"] = eager_total - sum(stages.values())
     print(json.dumps({"what": "stages", "gpu": gpu, "dtype": dtype, "batch": args.batch,
                       "input_points": serving.npoints, "forward_ms": total,
-                      "stage_ms": stages}), flush=True)
+                      "eager_forward_ms": eager_total, "stage_ms": stages}), flush=True)
 
     if args.csrc is not None:
         name = str(args.csrc)
@@ -191,10 +209,9 @@ def main() -> None:
             for which in (name, "package", "package", name):
                 with other if which == name else contextlib.nullcontext():
                     for _ in range(3):
-                        serving.device_call(x)
-                    runs[which].append({
-                        "forward_ms": _event_ms(lambda: serving.device_call(x), args.runs),
-                        **front_stages()})
+                        eager_call()
+                    runs[which].append({"eager_forward_ms": _event_ms(eager_call, args.runs),
+                                        **front_stages()})
         print(json.dumps({"what": "compare", "gpu": gpu, "dtype": dtype, "batch": args.batch,
                           "input_points": serving.npoints, "runs": runs}), flush=True)
 

@@ -20,15 +20,16 @@ attention and patch-embed routes read their weights themselves and stay
 fp32, as the JAX package's fused routes escape its interceptor.
 
 The int8 product is no port of a TPU kernel (the JAX package computes it with
-``jax.lax.dot_general`` outside any Pallas kernel): on the card it is
-``torch._int_mm``, whose shapes must have more than 16 rows and inner and
-output sizes that are multiples of 8, so the operands are padded with zeros
-(exact); on the CPU an int32 matmul. On a CUDA tensor the product never
-becomes a float product.
+``jax.lax.dot_general`` outside any Pallas kernel): it is the custom op
+``gm3d::int8_mm`` of ``ops/int8.py``, on the card ``torch._int_mm``, whose
+shapes must have more than 16 rows and inner and output sizes that are
+multiples of 8, so the operands are padded with zeros (exact); on the CPU an
+int32 matmul. On a CUDA tensor the product never becomes a float product.
 
-An artifact exported with ``--quantize int8`` holds the int8 weights and
-their scales (``quantize_module``); ``serve/export.py::load_artifact``
-converts the rebuilt model the same way before its strict load.
+An artifact exported with ``--quantize int8`` is traced from a copy of the
+model converted by ``quantize_module`` inside ``quantized_dense()``
+(``serve/export.py::export_forward``): its program holds the int8 weights
+and their scales, and runs the op on the device it is loaded on.
 """
 
 from __future__ import annotations
@@ -38,14 +39,12 @@ import copy
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from gm3d_tpu_torch.models.blocks import Dense, PointConv, dense_interceptor
+from gm3d_tpu_torch.ops.int8 import int8_matmul, padded_int_mm  # noqa: F401
 
 QUANT_LAYERS = (Dense, PointConv)
-# torch._int_mm on CUDA: more than 16 rows; inner and output sizes multiples of 8
-_MIN_ROWS, _ALIGN = 17, 8
 
 
 def quantize_kernel(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,37 +54,6 @@ def quantize_kernel(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = w.abs().amax(dim=1).clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
-
-
-def _ceil(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def padded_int_mm(qx: torch.Tensor, qw: torch.Tensor, mm=None) -> torch.Tensor:
-    """``mm(qx', qw'.T)[:M, :N]`` (``mm``: ``torch._int_mm``) on ``qx (M, K)``
-    and ``qw (N, K)`` zero-padded to more than 16 rows and to multiples of 8 in
-    K and N, which ``torch._int_mm`` requires on the card. Zero rows and
-    columns add nothing to an integer product: the result is exact."""
-    mm = torch._int_mm if mm is None else mm
-    m, k = qx.shape
-    n = qw.shape[0]
-    mp, kp, np_ = max(_ceil(m, _ALIGN), _MIN_ROWS), _ceil(k, _ALIGN), _ceil(n, _ALIGN)
-    if (mp, kp) != (m, k):
-        qx = F.pad(qx, (0, kp - k, 0, mp - m))
-    if (np_, kp) != (n, k):
-        qw = F.pad(qw, (0, kp - k, 0, np_ - n))
-    return mm(qx.contiguous(), qw.contiguous().t())[:m, :n]
-
-
-def int8_matmul(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
-    """``qx (M, K) int8 @ qw (N, K).T int8 -> (M, N) int32``, exact: on the
-    card ``torch._int_mm`` (:func:`padded_int_mm`), on the CPU an int32
-    matmul."""
-    if qx.dtype != torch.int8 or qw.dtype != torch.int8:
-        raise TypeError(f"int8 operands expected, got {qx.dtype} and {qw.dtype}")
-    if qx.is_cuda:
-        return padded_int_mm(qx, qw)
-    return torch.matmul(qx.to(torch.int32), qw.to(torch.int32).t())
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -94,7 +94,7 @@ class ServingModel:
         self._fn, self.manifest = load_artifact(path, device=device)
         self.batch, self.npoints, _ = self.manifest["input_shape"]
         self.device_call = self._fn.device_call
-        self.module = self._fn.module
+        self.program = self._fn.program  # the loaded torch.export program
         # at most one extra per-cloud input: the seg model's cls_label
         extra = self.manifest.get("extra_inputs", [])
         if len(extra) > 1:

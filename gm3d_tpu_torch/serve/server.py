@@ -5,7 +5,7 @@ Port of ``gm3d_tpu/serve/server.py``. Zero extra dependencies
 
 Endpoints:
   GET  /health    -> {"status": "ok"}
-  GET  /info      -> the artifact manifest
+  GET  /info      -> the artifact manifest (its ``platforms`` among it)
   POST /predict   -> body is either JSON {"points": [[[x,y,z],...],...]}
                      or a raw ``.npy`` array (Content-Type:
                      application/octet-stream); response is JSON

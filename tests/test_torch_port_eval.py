@@ -127,9 +127,12 @@ def _features(seed, n_train=120, n_test=50, dim=24, classes=5):
     return xtr, ytr, xte, yte
 
 
-@pytest.mark.parametrize("k", [1, 5, 20])
-def test_knn_accuracy_equals_the_jax_packages(k):
-    xtr, ytr, xte, yte = _features(k)
+@pytest.mark.parametrize("k, n_train", [
+    pytest.param(1, 120, id="1"), pytest.param(5, 120, id="5"), pytest.param(20, 120, id="20"),
+    pytest.param(20, 5, id="20_above_5_training_features")])
+def test_knn_accuracy_equals_the_jax_packages(k, n_train):
+    """k neighbours, all the training features where k is above their number."""
+    xtr, ytr, xte, yte = _features(k, n_train=n_train)
     want = jknn.knn_classifier(xtr, ytr, xte, yte, k=k)
     got = knn.knn_classifier(torch.from_numpy(xtr), torch.from_numpy(ytr), xte, yte, k=k)
     assert got == want and 0.3 < got <= 1.0

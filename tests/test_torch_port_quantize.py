@@ -32,7 +32,8 @@ from gm3d_tpu_torch.cli import export_model
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.models import GM3DStudent, PointMAE
 from gm3d_tpu_torch.models.blocks import Attention, Dense, LayerNorm, fused_attention_scope
-from gm3d_tpu_torch.serve import ServingModel, load_artifact
+from gm3d_tpu_torch.serve import (ServingModel, build_classifier_fn, build_feature_fn, build_seg_fn,
+                                  load_artifact)
 from gm3d_tpu_torch.serve import quantize as q
 
 NPOINTS, CLS = 128, 7
@@ -111,8 +112,10 @@ def test_the_padding_for_int_mm_is_exact(shape):
 
 
 def test_a_cuda_tensor_takes_int_mm_and_never_a_float_product(monkeypatch):
-    """On a CUDA tensor the int8 product goes to ``torch._int_mm`` (here a
-    stand-in that raises: tensors that claim to be CUDA ones)."""
+    """On a CUDA tensor the int8 product goes to ``torch._int_mm``: a dense
+    layer's product is the op ``gm3d::int8_mm``, sent here to the op's CUDA
+    kernel (the dispatcher's CUDA key) with tensors of the CPU, and that kernel
+    hands it to ``torch._int_mm`` (a stand-in that raises)."""
 
     class Reached(Exception):
         pass
@@ -121,8 +124,10 @@ def test_a_cuda_tensor_takes_int_mm_and_never_a_float_product(monkeypatch):
         assert a.dtype == b.dtype == torch.int8
         raise Reached
 
+    op = torch.ops.gm3d.int8_mm.default
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
     monkeypatch.setattr(torch, "_int_mm", int_mm)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.ops.gm3d, "int8_mm", lambda qx, qw: op.redispatch(cuda, qx, qw))
     layer = Dense(3, 15)
     with pytest.raises(Reached), q.quantized_dense():
         layer(torch.randn(4, 3))
@@ -274,9 +279,14 @@ def test_an_int8_export_is_smaller_loads_strictly_and_serves(mode, tmp_path):
     pts = _rng(5).standard_normal((3, NPOINTS, 3)).astype(np.float32)
     extra = (np.array([0, 4, 15], np.int32),) if mode == "segmentation" else ()
     got, ref = served.predict(pts, *extra), served_fp.predict(pts, *extra)
-    fp_fn, _ = load_artifact(fp, device="cpu")
-    with q.quantized_dense():  # the fp32 model, each product quantized on the fly
-        want = fp_fn.device_call(*(torch.from_numpy(a) for a in (pts, *extra))).numpy()
+    # the fp32 model (its weights from the export's seed), each product quantized on the fly
+    model = build_model_from_cfg(manifest["model_cfg"])
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    model.eval()
+    fn = (build_seg_fn(model) if mode == "segmentation" else
+          (build_classifier_fn if mode == "classifier" else build_feature_fn)(model, NPOINTS))
+    with torch.no_grad(), q.quantized_dense():
+        want = fn(*(torch.from_numpy(a) for a in (pts, *extra))).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
     assert 0 < np.abs(got - ref).max() <= 0.15 * np.abs(ref).max()
 

@@ -75,7 +75,8 @@ from gm3d_tpu_torch.eval.metrics import part_miou
 from gm3d_tpu_torch.models import GM3DStudent, PointMAE, PointMAESeg
 from gm3d_tpu_torch.models.segmentation import propagate_features
 from gm3d_tpu_torch.ops.knn import knn_indices
-from gm3d_tpu_torch.serve import ServingModel, load_artifact, save_artifact
+from gm3d_tpu_torch.serve import (ServingModel, build_seg_fn, export_forward, load_artifact,
+                                  save_artifact)
 from gm3d_tpu_torch.serve.server import make_server
 from gm3d_tpu_torch.train import segmentation as seg
 from gm3d_tpu_torch.train.state import create_train_state
@@ -775,15 +776,17 @@ def test_a_seg_artifact_without_its_parts_table_is_refused(tmp_path):
                              "2", "--device", "cpu", "--out", str(tmp_path / "seg.gm3dx")])
     with zipfile.ZipFile(art) as zf:
         manifest = json.loads(zf.read("manifest.json"))
-        weights = zf.read("weights.pt")
+        program = zf.read("program.pt2")
     model = build_model_from_cfg(manifest["model_cfg"])
+    exported = export_forward(build_seg_fn(model), (torch.zeros(2, N, 3),
+                                                    torch.zeros(2, dtype=torch.int32)))
     for key in ("seg_classes", "cls_names"):
         bare = {k: v for k, v in manifest.items() if k != key}
         with pytest.raises(ValueError, match="category -> parts table"):
-            save_artifact(str(tmp_path / "bare.gm3dx"), model, bare, (2, N, 3), "cpu")
+            save_artifact(str(tmp_path / "bare.gm3dx"), exported, bare)
         with zipfile.ZipFile(tmp_path / "edited.gm3dx", "w") as zf:
             zf.writestr("manifest.json", json.dumps(bare))
-            zf.writestr("weights.pt", weights)
+            zf.writestr("program.pt2", program)
         with pytest.raises(ValueError, match="category -> parts table"):
             load_artifact(str(tmp_path / "edited.gm3dx"), device="cpu")
     load_artifact(art, device="cpu")

@@ -39,7 +39,8 @@ from gm3d_tpu_torch.cli import export_model
 from gm3d_tpu_torch.cli import serve as serve_cli
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.models import GM3DStudent
-from gm3d_tpu_torch.serve import DynamicBatcher, ServingModel, load_artifact, save_artifact
+from gm3d_tpu_torch.serve import (DynamicBatcher, ServingModel, build_feature_fn, export_forward,
+                                  load_artifact, save_artifact)
 from gm3d_tpu_torch.serve.server import make_server
 
 NPOINTS, BATCH, CLS = 128, 4, 7
@@ -113,7 +114,7 @@ def test_classifier_logits_match_jax(serving):
 
 def test_manifest_fields(serving):
     m = serving.manifest
-    assert m["format_version"] == 1 and m["mode"] == "classifier"
+    assert m["format_version"] == 2 and m["mode"] == "classifier"
     assert m["model"] == "PointTransformer" and m["npoints"] == NPOINTS
     assert m["input_shape"] == [BATCH, NPOINTS, 3] and m["input_dtype"] == "float32"
     assert m["output_shape"] == [BATCH, CLS] and m["output_dtype"] == "float32"
@@ -160,11 +161,11 @@ def test_feature_mode_matches_jax(family, tmp_path):
         assert isinstance(model, GM3DStudent)
         model.load_state_dict(state_dict_from_flax(variables, GM3D_STUDENT_MAP), strict=True)
         art = save_artifact(
-            str(tmp_path / "f.gm3dx"), model,
+            str(tmp_path / "f.gm3dx"),
+            export_forward(build_feature_fn(model, NPOINTS), torch.zeros(2, NPOINTS, 3)),
             {"mode": "features", "model": "GM3DStudent", "model_cfg": model_cfg,
              "npoints": NPOINTS, "ckpt_step": -1,
-             "compute_dtype": "float32", "quantization": "none"},
-            (2, NPOINTS, 3), "cpu")
+             "compute_dtype": "float32", "quantization": "none"})
     serving = ServingModel(art, device="cpu")
     assert serving.manifest["mode"] == "features"
     got = serving.predict(pts)
@@ -217,7 +218,7 @@ def test_export_guards(classifier_artifact, tmp_path):
         manifest = json.loads(src.read("manifest.json"))
         manifest["mode"] = "detection"
         dst.writestr("manifest.json", json.dumps(manifest))
-        dst.writestr("weights.pt", src.read("weights.pt"))
+        dst.writestr("program.pt2", src.read("program.pt2"))
     with pytest.raises(ValueError, match="'detection' is not served"):
         load_artifact(str(other), device="cpu")
 
@@ -262,6 +263,7 @@ def test_http_health_and_info(http):
     assert _request(base + "/health") == (200, {"status": "ok"})
     status, info = _request(base + "/info")
     assert status == 200 and info["input_shape"] == [BATCH, NPOINTS, 3]
+    assert info["platforms"] == ["cpu"] and info["format_version"] == 2
     assert set(info["dynamic_batching"]) == {"max_wait_ms", "device_calls", "clouds_served"}
     assert _request(base + "/nope")[0] == 404
 
