@@ -165,6 +165,24 @@ Phases, each printing one JSON line when it ends:
               sizes, clouds/s of the three; four GM3D steps with ``quantize_ema``
               (launches 1/1/2/72/28 a step, finite, ``'ema'`` refused), its ms a step
               beside the default step's, the int8 EMA pass's predicted-loss gap
+  clip        the GM3D step with ``distill_mode='clip'`` at full width (B 256,
+              1,024 points, 64 x 32 groups, 384 wide) and the CLI's default CLIP
+              tower (random weights from seed 2): a few steps, each kernel's
+              launches in one step (the same every step; the patch embed once,
+              the EMA pass's), ms a step and peak memory beside the default
+              ``dino`` step's from the same run, the CLIP target pass's share of
+              the step (CUDA events at the step's marks); at B 8 the card's step
+              against the port's on the CPU from the same weights and draws
+              (metrics within ``TOL_STEP``, masks agreeing); the depth renders and
+              the centers' patches EQUAL to the CPU's; then the pretrain CLI
+              for one epoch of four steps with ``--learn_feature_loss clip
+              --clip_path`` on a fabricated CLIP state dict (records, launches)
+  emd         ``emd_auction_assignment``'s owners on the card EQUAL to the CPU's on
+              grid clouds (exact costs) with duplicated points (ties), ``emd_loss``
+              and its gradient within ``EMD_LOSS_TOL`` / ``EMD_GRAD_TOL``; the
+              Point-MAE step with ``loss: emd`` at full width (``config.yaml``'s
+              model, B 256, mask 0.6) beside the ``cdl2`` step: ms, peak memory,
+              launches (FPS and KNN only)
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -3181,9 +3199,296 @@ def phase_evaluate(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     return {"launches": launches, "launches_quantized": quantized, "launches_quantize_ema": ema}
 
 
+# the clip step at full width: B 256 (TRAIN_BATCH), the CLI's default tower (CLIP_SEED);
+# the card against the CPU at CLIP_CPU_BATCH clouds with stochastic depth 0
+CLIP_STEPS, CLIP_CPU_BATCH, CLIP_SEED = 4, 8, 2
+
+
+def _fabricated_clip_sd(width=256, patch=4, grid=8, layers=6, out=384, seed=0) -> dict:
+    """A full CLIP state dict laid out as the reference's (``visual.*`` beside
+    text-tower keys), random weights from ``seed``: no CLIP weights ship with
+    the repository."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=0.02):
+        return torch.randn(*shape, generator=gen) * scale
+
+    sd = {"conv1.weight": randn(width, 3, patch, patch), "class_embedding": randn(width),
+          "positional_embedding": randn(grid * grid + 1, width), "proj": randn(width, out),
+          "ln_pre.weight": 1 + randn(width), "ln_pre.bias": randn(width),
+          "ln_post.weight": 1 + randn(width), "ln_post.bias": randn(width)}
+    for i in range(layers):
+        p = f"transformer.resblocks.{i}."
+        sd.update({p + "ln_1.weight": 1 + randn(width), p + "ln_1.bias": randn(width),
+                   p + "ln_2.weight": 1 + randn(width), p + "ln_2.bias": randn(width),
+                   p + "attn.in_proj_weight": randn(3 * width, width),
+                   p + "attn.in_proj_bias": randn(3 * width),
+                   p + "attn.out_proj.weight": randn(width, width),
+                   p + "attn.out_proj.bias": randn(width),
+                   p + "mlp.c_fc.weight": randn(4 * width, width),
+                   p + "mlp.c_fc.bias": randn(4 * width),
+                   p + "mlp.c_proj.weight": randn(width, 4 * width),
+                   p + "mlp.c_proj.bias": randn(width)})
+    text = {"positional_embedding": randn(77, 512), "token_embedding.weight": randn(1000, 512),
+            "ln_final.weight": randn(512), "text_projection": randn(512, out),
+            "logit_scale": randn(())}
+    return {**{f"visual.{k}": v for k, v in sd.items()}, **text}
+
+
+def _default_clip_tower(device) -> "CLIPVisionTower":
+    """The pretrain CLI's tower without ``--clip_path``: output_dim 384."""
+    from gm3d_tpu_torch.models.clip import CLIPVisionTower
+
+    tower = CLIPVisionTower(output_dim=384)
+    tower.reset_parameters(torch.Generator().manual_seed(CLIP_SEED))
+    return tower.to(device)
+
+
+def _launches_per_step(step, state, gen, steps: int) -> tuple[dict, list]:
+    """Each kernel's launches in each of ``steps`` steps; the steps' metrics."""
+    per_step, history = [], []
+    for _ in range(steps):
+        pts = _train_clouds(gen)
+        pp.reset_launches()
+        state, metrics = step(state, pts, gen, pp.SCALARS)
+        per_step.append(pp.read_launches())
+        history.append({k: float(metrics[k]) for k in METRIC_KEYS})
+    check(all(c == per_step[0] for c in per_step), f"launches differ between steps {per_step}")
+    check(all(np.isfinite(v) for m in history for v in m.values()), history)
+    return per_step[0], history
+
+
+def _stage_ms(step, state, gen, runs: int = 3) -> dict:
+    """Median CUDA-event ms of each marked stage of ``runs`` steps, and of the step."""
+    stages, whole = {}, []
+    for _ in range(runs):
+        pts = _train_clouds(gen)
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+
+        def mark(stage):
+            events.append((stage, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+
+        torch.cuda.synchronize()
+        events[0][1].record()
+        step(state, pts, gen, pp.SCALARS, mark=mark)
+        torch.cuda.synchronize()
+        whole.append(events[0][1].elapsed_time(events[-1][1]))
+        for (_, prev), (name, ev) in zip(events, events[1:]):
+            stages.setdefault(name, []).append(prev.elapsed_time(ev))
+    return {"step": statistics.median(whole),
+            **{k: statistics.median(v) for k, v in stages.items()}}
+
+
+def _clip_card_vs_cpu() -> dict:
+    """One clip step at ``CLIP_CPU_BATCH`` clouds on the card and in the port
+    on the CPU: the same weights (seed 0, the tower's seed 2), clouds and draws,
+    stochastic depth 0 (its draws come from each device's generator)."""
+    from gm3d_tpu_torch.cli.pretrain import step_draws
+
+    gen = torch.Generator().manual_seed(3)
+    pts = torch.randn((CLIP_CPU_BATCH, NPOINTS, 3), generator=gen) * 0.5
+    draws = step_draws(gen, CLIP_CPU_BATCH, NUM_GROUP)
+    out = {}
+    for device in ("cpu", DEV):
+        state, _ = pp.build_pretrain_setup(seed=0, device=device, drop_path_rate=0.0)
+        step = make_gm3d_train_step(state.student, _default_clip_tower(device), state.optimizer,
+                                    distill_mode="clip", device=device)
+        _, metrics = step(state, pts.to(device), None, pp.SCALARS,
+                          draws={k: v.to(device) for k, v in draws.items()})
+        out[str(device)] = ({k: float(metrics[k]) for k in METRIC_KEYS}, step.last_mask.cpu())
+    (cpu, cpu_mask), (card, card_mask) = out["cpu"], out[str(DEV)]
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in METRIC_KEYS}
+    check(all(v <= TOL_STEP for v in rel.values()),
+          f"clip step on the card {card} against the CPU {cpu}: {rel} above {TOL_STEP}")
+    agree = float((card_mask == cpu_mask).float().mean())
+    check(agree >= 0.995, f"clip masks agree on {agree}")
+    return {"batch": CLIP_CPU_BATCH, "card": card, "cpu": cpu, "rel_diff": rel,
+            "tol": TOL_STEP, "mask_agreement": agree}
+
+
+def _clip_render_checks() -> dict:
+    """The depth renders (a scatter-max from zeros: order-free) and the
+    centers' patches (int32 truncations, the fp32 clamp below 1) on the card
+    EQUAL to the CPU's, on B 256 clouds of 1,024 points and on grid clouds
+    (multiples of 1/64: many on patch edges, a quarter of the points repeated)."""
+    from gm3d_tpu_torch.models.clip import center_patches, render_depth_views
+
+    gen = torch.Generator().manual_seed(5)
+    clouds = {"normal": torch.randn((TRAIN_BATCH, NPOINTS, 3), generator=gen) * 0.5,
+              "grid": torch.from_numpy(_grid_cloud(np.random.default_rng(5), TRAIN_BATCH,
+                                                   NPOINTS, NPOINTS // 4))}
+    out = {}
+    for name, pts in clouds.items():
+        card = pts.to(DEV)
+        img_equal = bool(torch.equal(render_depth_views(card, 32).cpu(),
+                                     render_depth_views(pts, 32)))
+        patch_equal = bool(torch.equal(center_patches(card, 8).cpu(), center_patches(pts, 8)))
+        check(img_equal and patch_equal, f"{name} clouds: renders equal {img_equal}, "
+                                         f"patches equal {patch_equal}")
+        out[name] = {"renders_equal": img_equal, "patches_equal": patch_equal,
+                     "render_ms": cuda_ms(lambda: render_depth_views(card, 32))}
+    return out
+
+
+def phase_clip(env: dict, tmp: str) -> dict:
+    """CLIP distillation at full width: the step, its launches and times beside
+    the default step's, the card against the CPU, the CLI with ``--clip_path``."""
+    t_phase = time.perf_counter()
+    state, teacher = pp.build_pretrain_setup(seed=0, device=DEV)
+    tower = _default_clip_tower(DEV)
+    step = make_gm3d_train_step(state.student, tower, state.optimizer, distill_mode="clip",
+                                device=DEV)
+    check(step.num_mask == NUM_MASK, step.num_mask)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    per_step, history = _launches_per_step(step, state, gen, CLIP_STEPS)
+    check(all(m["loss_chfr"] == 0.0 and m["loss_mse"] > 0.0 for m in history), history)
+    check(per_step["fps"] == 1 and per_step["knn"] == 1 and per_step["patch_embed"] == 1
+          and per_step["attention_bwd"] == LAUNCHES_PER_STEP["attention_bwd"]
+          and 0 < per_step["attention_fwd"] < LAUNCHES_PER_STEP["attention_fwd"],
+          f"clip step launches {per_step}")
+
+    # the default (dino) step beside it, from its own state: ms, peak memory, in turns
+    dino_state, _ = pp.build_pretrain_setup(seed=0, device=DEV)
+    dino = make_gm3d_train_step(dino_state.student, teacher, dino_state.optimizer, device=DEV)
+    timing = {"clip": [], "dino": []}
+    for _ in range(2):
+        for name, (fn, st) in (("clip", (step, state)), ("dino", (dino, dino_state))):
+            _, _, wall, peak = _steps(fn, st, gen, 3)
+            timing[name].append({"ms_wall_median": statistics.median(wall),
+                                 "peak_extra_bytes": peak})
+    stages = _stage_ms(step, state, gen)
+    share = stages["clip_targets"] / stages["step"]
+    res = {"phase": "clip", "batch": TRAIN_BATCH, "npoints": NPOINTS,
+           "tower": tower.config, "launches_per_step": per_step,
+           "launches_per_step_dino": LAUNCHES_PER_STEP, "metrics_first": history[0],
+           "metrics_last": history[-1], "timing_in_turns": timing,
+           "stage_ms": stages, "clip_target_share_of_step": share}
+    res["card_vs_cpu"] = _clip_card_vs_cpu()
+    res["renders"] = _clip_render_checks()
+
+    # the CLI, one epoch of four steps through --clip_path
+    path = os.path.join(tmp, "clip.pt")
+    torch.save(_fabricated_clip_sd(), path)
+    out = os.path.join(tmp, "clip_cli")
+    _fresh_cli_logger()
+    pp.reset_launches()
+    records = pretrain_cli.main(["--config", GM3D_CONFIG, "--learn_feature_loss", "clip",
+                                 "--clip_path", path, *_cli_flags(out, 1)])
+    launches = pp.read_launches()
+    check(len(records) == 1 and set(records[0]) == CLI_RECORD_KEYS
+          and records[0]["steps"] == CLI_STEPS_PER_EPOCH and records[0]["loss_chfr"] == 0.0
+          and all(np.isfinite(records[0][k]) for k in CLI_RECORD_KEYS), records)
+    with open(os.path.join(out, "pretrain.log")) as f:
+        check("CLIP teacher loaded" in f.read(), "the CLI did not load --clip_path")
+    want = with_probes(per_step, CLI_STEPS_PER_EPOCH, 1)
+    check(launches == want, f"clip CLI launches {launches}, expected {want}")
+    res["cli"] = {"record": records[0], "launches": launches,
+                  "clip_path_tower": {"width": 256, "layers": 6, "heads": 4,
+                                      "output_dim": 384}}
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["gpu"] = env["gpu"]
+    emit(res)
+    return {"launches": {k: v * CLIP_STEPS for k, v in per_step.items()}}
+
+
+# the EMD phase: auction owners and the Sinkhorn loss on the card against the CPU
+# (the auction's rounds grow with the sets held at once: 64 keeps the CPU's side
+# to about a second)
+EMD_SEED, EMD_AUCTION_SETS, EMD_SETS, EMD_LOSS_TOL, EMD_GRAD_TOL = 0, 64, 256, 1e-5, 1e-4
+EMD_STEPS = 3
+
+
+def _emd_step(loss: str, tmp: str):
+    """The Point-MAE of ``config.yaml``'s model section with ``loss`` (a copy in
+    ``tmp``: the repository's configs stay as they are), its legacy AdamW and
+    its pretrain step, on the card, weights from seed 0."""
+    import yaml
+
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+    from gm3d_tpu_torch.train.optim import build_legacy_adamw
+    from gm3d_tpu_torch.train.pretrain import make_pointmae_train_step
+    from gm3d_tpu_torch.train.state import create_train_state
+
+    with open(GM3D_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    path = os.path.join(tmp, f"pointmae_{loss}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({**raw, "model": {**raw["model"], "loss": loss}}, f)
+    cfg = cfg_from_yaml_file(path)["model"]
+    model = build_model_from_cfg(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(DEV)
+    optimizer = build_legacy_adamw(model.named_parameters(), 1e-3, 0.05)
+    tc = cfg["transformer_config"]
+    step = make_pointmae_train_step(model, optimizer, tc["mask_ratio"], tc["mask_type"],
+                                    cfg["loss"], device=DEV)
+    return step, create_train_state(model, optimizer)
+
+
+def phase_emd(env: dict, tmp: str) -> dict:
+    """The EMD on the card against the CPU, then the ``loss: emd`` teacher step."""
+    from gm3d_tpu_torch.ops import emd
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(EMD_SEED)
+    res = {"phase": "emd", "auction": []}
+    for n, dup in ((32, 0), (32, 16), (64, 32)):
+        a, b = (torch.from_numpy(_grid_cloud(rng, EMD_AUCTION_SETS, n, dup)) for _ in range(2))
+        da, db = a.to(DEV), b.to(DEV)
+        cpu_owner, _ = emd.emd_auction_assignment(a, b)
+        owner, _ = emd.emd_auction_assignment(da, db)
+        equal = bool(torch.equal(owner.cpu(), cpu_owner))
+        check(equal, f"auction owners differ between the card and the CPU (n {n}, dup {dup})")
+        res["auction"].append({
+            "sets": EMD_AUCTION_SETS, "n": n, "duplicated": dup, "owners_equal": equal,
+            "cost_equal": bool(torch.equal(emd.emd_auction(da, db).cpu(), emd.emd_auction(a, b))),
+            "ms": cuda_ms(lambda: emd.emd_auction_assignment(da, db), 3, 1)})
+
+    a = torch.from_numpy(rng.standard_normal((EMD_SETS, 32, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((EMD_SETS, 32, 3)).astype(np.float32))
+    got = {}
+    for device in ("cpu", DEV):
+        x = a.to(device).detach().requires_grad_(True)
+        value = emd.emd_loss(x, b.to(device))
+        value.sum().backward()
+        got[str(device)] = (value.detach().cpu(), x.grad.cpu())
+    value_err = _rel_err(got[str(DEV)][0], got["cpu"][0])[1]
+    grad_err = _rel_err(got[str(DEV)][1], got["cpu"][1])[1]
+    check(value_err <= EMD_LOSS_TOL and grad_err <= EMD_GRAD_TOL, (value_err, grad_err))
+    res["sinkhorn"] = {"sets": EMD_SETS, "n": 32, "rel_err_value": value_err,
+                       "tol_value": EMD_LOSS_TOL, "rel_err_grad": grad_err,
+                       "tol_grad": EMD_GRAD_TOL}
+
+    steps = {loss: _emd_step(loss, tmp) for loss in ("cdl2", "emd")}
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    timing, launches = {"cdl2": [], "emd": []}, None
+    for order in (("cdl2", "emd"), ("emd", "cdl2")):
+        for loss in order:
+            step, state = steps[loss]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(DEV)
+            base = torch.cuda.memory_allocated(DEV)
+            if loss == "emd" and launches is None:
+                pp.reset_launches()
+            ms, wall, losses = _step_ms(
+                lambda: step(state, _train_clouds(gen), gen)[1], runs=EMD_STEPS, warmup=1)
+            if loss == "emd" and launches is None:
+                launches = pp.read_launches()
+            timing[loss].append({"ms_cuda_events": ms, "ms_wall": wall, "losses": losses,
+                                 "peak_extra_bytes": torch.cuda.max_memory_allocated(DEV) - base})
+    want = {k: v * (EMD_STEPS + 1) for k, v in TEACHER_LAUNCHES_PER_STEP.items()}
+    check(launches == want, f"emd step launches {launches}, expected {want}")
+    res.update({"step": {"batch": TRAIN_BATCH, "masked_groups": steps["emd"][0].num_mask,
+                         "timing_in_turns": timing, "launches": launches},
+                "phase_s": time.perf_counter() - t_phase, "gpu": env["gpu"]})
+    emit(res)
+    return {"launches": launches}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
           "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae",
-          "evaluate")
+          "evaluate", "clip", "emd")
 
 
 def main() -> None:
@@ -3238,6 +3543,9 @@ def main() -> None:
         if "evaluate" in phases:
             # on the checkpoints of the phases above where they ran
             evaluated = phase_evaluate(env, tmp, pretrained, cli_args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        clipped = phase_clip(env, tmp) if "clip" in phases else None
+        emded = phase_emd(env, tmp) if "emd" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -3267,6 +3575,10 @@ def main() -> None:
         kern["launches_evaluate"] = evaluated["launches"][kern["name"]]
         kern["launches_quantized"] = evaluated["launches_quantized"][kern["name"]]
         kern["launches_quantize_ema"] = evaluated["launches_quantize_ema"][kern["name"]]
+        # the clip step's four steps (the patch embed once a step); the emd teacher
+        # step's four (FPS and KNN only, as the JAX step routes it)
+        kern["launches_clip"] = clipped["launches"][kern["name"]]
+        kern["launches_emd"] = emded["launches"][kern["name"]]
         if kern["name"] == "knn":
             # the feature propagation's shape: 2,048 queries on 128 references, k 3
             kern["seg_propagation"] = segmented["knn_propagation"]

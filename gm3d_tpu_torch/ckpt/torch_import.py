@@ -13,6 +13,11 @@ Weight-layout rules:
   flax scale/bias              -> torch LN/BN weight/bias
   flax batch_stats mean/var    -> torch BN running_mean/running_var
   flax raw parameter           -> torch parameter of the same shape ("param")
+  flax Conv kernel (P, P, 3, W) -> torch Conv2d weight (W, 3, P, P)  ("conv2d")
+  flax fused qkv Dense         -> MultiheadAttention in_proj_weight / in_proj_bias
+
+:func:`import_clip_visual` reads a CLIP checkpoint (``--clip_path``) into the
+port's ``CLIPVisionTower``.
 """
 
 from __future__ import annotations
@@ -183,6 +188,23 @@ M2AE_SEG_MAP = {**_m2ae_encoder(), **_M2AE_NORMS,
                    if k.startswith(("label_embed", "prop_proj", "head_"))}}
 
 
+# The CLIP vision tower (``models/clip.py``) under the reference's CLIP names.
+# Two layouts of their own: the NHWC conv kernel (P, P, 3, W) is the torch
+# Conv2d weight (W, 3, P, P), and the fused qkv Dense is the in-projection of
+# ``nn.MultiheadAttention`` (``in_proj_weight`` (3W, W), ``in_proj_bias``).
+CLIP_VISUAL_MAP = {
+    "conv1": ("conv1", "conv2d"),
+    "ln_pre": ("ln_pre", "ln"),
+    "ln_post": ("ln_post", "ln"),
+    "transformer.resblocks.{i}.ln_1": ("block{i}/ln_1", "ln"),
+    "transformer.resblocks.{i}.ln_2": ("block{i}/ln_2", "ln"),
+    "transformer.resblocks.{i}.attn": ("block{i}/attn/qkv", "in_proj"),
+    "transformer.resblocks.{i}.attn.out_proj": ("block{i}/attn/out", "linear"),
+    "transformer.resblocks.{i}.mlp.c_fc": ("block{i}/c_fc", "linear"),
+    "transformer.resblocks.{i}.mlp.c_proj": ("block{i}/c_proj", "linear"),
+}
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
@@ -212,8 +234,9 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     """flax ``variables`` (nested dict of numpy arrays) -> torch state dict.
 
     Top-level parameters (``cls_token``, ``cls_pos``, ``mask_token``,
-    ``mask_token_loss_pred``) pass through under their own names. A module
-    the table does not name is an error: nothing is dropped silently."""
+    ``mask_token_loss_pred``; the CLIP tower's ``class_embedding``,
+    ``positional_embedding``, ``proj``) pass through under their own names. A
+    module the table does not name is an error: nothing is dropped silently."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key: str, value: np.ndarray) -> None:
@@ -232,13 +255,17 @@ def state_dict_from_flax(variables: Mapping[str, Any],
         if hit is None:
             raise KeyError(f"no torch name for flax module {module!r}")
         torch_path, kind = hit
+        prefix = f"{torch_path}.in_proj_" if kind == "in_proj" else f"{torch_path}."
         if leaf == "kernel":
-            w = value.T
-            put(f"{torch_path}.weight", w[..., None] if kind == "conv" else w)
+            if kind == "conv2d":
+                put(f"{prefix}weight", value.transpose(3, 2, 0, 1))
+            else:
+                w = value.T
+                put(f"{prefix}weight", w[..., None] if kind == "conv" else w)
         elif leaf == "scale":
-            put(f"{torch_path}.weight", value)
+            put(f"{prefix}weight", value)
         elif leaf == "bias":
-            put(f"{torch_path}.bias", value)
+            put(f"{prefix}bias", value)
         else:
             raise KeyError(f"unknown parameter leaf {leaf!r} at {path!r}")
     for path, value in _flatten(variables.get("batch_stats", {})).items():
@@ -300,3 +327,26 @@ def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
             ckpt = ckpt[key]
             break
     return {strip_prefixes(k): torch.as_tensor(v) for k, v in ckpt.items()}
+
+
+def import_clip_visual(state_dict: Mapping[str, Any]) -> Tuple[Dict[str, int],
+                                                               Dict[str, torch.Tensor]]:
+    """A CLIP checkpoint -> (tower config, the tower's state dict).
+
+    Takes a full CLIP state dict (its ``visual.*`` part, the ``--clip_path``
+    file) or a bare vision tower's, and infers the config as the reference's
+    ``build_model`` does: the patch from ``conv1``, the grid from the
+    positional embedding, ``heads = width // 64``, ``output_dim`` from
+    ``proj``. The state dict loads into ``CLIPVisionTower(**config)`` with
+    ``strict=True``."""
+    keys = {strip_prefixes(k): v for k, v in state_dict.items()}
+    if any(k.startswith("visual.") for k in keys):
+        keys = {k[len("visual."):]: v for k, v in keys.items() if k.startswith("visual.")}
+    sd = {k: torch.as_tensor(v).to(torch.float32) for k, v in keys.items()}
+    width, _, patch, _ = sd["conv1.weight"].shape
+    grid2 = sd["positional_embedding"].shape[0] - 1
+    layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")})
+    cfg = dict(input_resolution=int(round(grid2 ** 0.5)) * patch, patch_size=int(patch),
+               width=int(width), layers=layers, heads=int(width) // 64,
+               output_dim=int(sd["proj"].shape[1]))
+    return cfg, sd

@@ -1,10 +1,11 @@
 """GM3D, Point-MAE and Point-M2AE pretraining from the command line.
 
 Port of ``gm3d_tpu/cli/pretrain.py`` for ``--model_family gm3d`` (shared
-optimizer or ``--no-shared_opt``, ``--learn_feature_loss`` ``dino``, ``ema``
-or ``none``, ``--student_variant svm`` or ``legacy``, fp32 or ``--bf16``),
-``--model_family pointmae`` (the teacher's pretrain, the legacy runner's
-recipe) and ``--model_family m2ae`` / ``m2ae_gm3d`` (the config's
+optimizer or ``--no-shared_opt``, ``--learn_feature_loss`` ``dino``, ``ema``,
+``clip`` (with ``--clip_path``) or ``none``, ``--student_variant svm`` or
+``legacy``, fp32 or ``--bf16``), ``--model_family pointmae`` (the teacher's
+pretrain, the legacy runner's recipe) and ``--model_family m2ae`` /
+``m2ae_gm3d`` (the config's
 ``Point_M2AE``; the GM3D variant clips the global norm at 5 and keeps an EMA),
 with ``--accum_iter`` micro-batches an update, on synthetic clouds
 or on-disk ShapeNet-55. Same flags, same log
@@ -32,12 +33,21 @@ logs ``loss_cls`` and ``acc_cls``. The teacher, then GM3D::
   python -m gm3d_tpu_torch.cli.pretrain --config configs/m2ae/config_Point_M2AE.yaml \\
       --model_family m2ae_gm3d --synthetic --epochs 2 --output_dir /tmp/m2ae
 
+``--learn_feature_loss clip`` distils from a frozen CLIP vision tower over
+depth renders of each cloud: the ``visual`` tower of the ``--clip_path`` file
+(a local CLIP state dict, its projection as wide as the student), else the JAX
+CLI's default tower (resolution 32, patch 4, width 256, 6 layers, 8 heads)
+with random weights from a generator seeded 2, so that ``--resume`` rebuilds
+the same tower. The tower is not saved in the checkpoint. The other families
+ignore the flag, as the JAX CLI's do.
+
 Point-M2AE's SVM probe pools every scale (``pooled_features``), its
 ``--classification`` probe reads the coarsest tokens (``encode_features``).
 
 Runs on the GPU unless ``--device cpu`` is given. Every flag of the JAX CLI
-is accepted; those whose path is not ported yet raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item (``NOT_PORTED``).
+is accepted; ``--num_devices`` above 1 and ``--native_loader``, whose paths
+are not ported yet, raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from gm3d_tpu_torch.ckpt.checkpoint import (
     save_checkpoint,
     save_loader_state,
 )
-from gm3d_tpu_torch.ckpt.torch_import import load_torch_file
+from gm3d_tpu_torch.ckpt.torch_import import import_clip_visual, load_torch_file
 from gm3d_tpu_torch.cli.common import (
     base_parser,
     compute_dtype,
@@ -78,6 +88,7 @@ from gm3d_tpu_torch.eval import linear_svc
 from gm3d_tpu_torch.eval.svm import svm_probe
 from gm3d_tpu_torch.masking import keep_ratio_schedule
 from gm3d_tpu_torch.models import GM3DStudent
+from gm3d_tpu_torch.models.clip import CLIPVisionTower
 from gm3d_tpu_torch.models.point_transformer import Classifier
 from gm3d_tpu_torch.train.optim import (
     GM3D_COORD_HEAD,
@@ -131,9 +142,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--learn_feature_loss", choices=["dino", "ema", "clip", "none"],
                    default="dino",
                    help="dino = frozen Point-MAE teacher distillation (default); "
-                        "ema = EMA feature targets; clip = CLIP teacher (not ported "
-                        "yet, item 7); none = Chamfer-only (usual mode)")
-    p.add_argument("--clip_path", default=None)
+                        "ema = EMA feature targets; clip = frozen CLIP vision "
+                        "tower over depth renders (--clip_path); "
+                        "none = Chamfer-only (usual mode)")
+    p.add_argument("--clip_path", default=None,
+                   help="CLIP .pt/.pth checkpoint (a local file) for --learn_feature_loss "
+                        "clip; a random tower from a fixed seed if absent")
     p.add_argument("--no_learning_loss", action="store_true")
     p.add_argument("--relative", action="store_true", default=True)
     p.add_argument("--shared_learnable_tokens", action="store_true")
@@ -170,21 +184,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "w8a8 (serve/quantize.py); only the mask ranking sees the noise. "
                         "Refused with --learn_feature_loss ema")
     return p.parse_args(argv)
-
-
-# (test, what, ROADMAP.md Queue 1 item) for each JAX flag whose path is not ported yet;
-# --num_devices above 1 (item 8) raises in setup_mesh, --native_loader (item 10) in
-# make_train_loader
-NOT_PORTED = (
-    (lambda a: a.learn_feature_loss == "clip", "--learn_feature_loss clip", "7"),
-)
-
-
-def refuse_not_ported(args) -> None:
-    for test, what, item in NOT_PORTED:
-        if test(args):
-            raise NotImplementedError(
-                f"{what} is not ported to gm3d_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
 
 
 def resolve_student_variant(args) -> bool:
@@ -259,6 +258,28 @@ def build_classifier(args, dim: int, dtype: torch.dtype) -> Classifier:
     return classifier
 
 
+def build_clip_teacher(args, trans_dim: int, dtype: torch.dtype, logger) -> CLIPVisionTower:
+    """The frozen CLIP tower of ``--learn_feature_loss clip``: the ``visual``
+    tower of ``--clip_path`` (strictly loaded; its ``output_dim`` must be the
+    student's ``trans_dim``), else the JAX CLI's default tower with
+    ``output_dim = trans_dim``, random weights drawn from a generator seeded 2
+    (the JAX CLI's init key), the same on every run and ``--resume``."""
+    if args.clip_path:
+        clip_cfg, sd = import_clip_visual(load_torch_file(args.clip_path))
+        if clip_cfg["output_dim"] != trans_dim:
+            raise ValueError(
+                f"CLIP output_dim {clip_cfg['output_dim']} != student trans_dim {trans_dim}; "
+                "pick a checkpoint whose projection matches (or retrain the projection)")
+        tower = CLIPVisionTower(**clip_cfg, dtype=dtype)
+        tower.load_state_dict(sd, strict=True)
+        logger.info(f"CLIP teacher loaded: {clip_cfg}")
+        return tower
+    tower = CLIPVisionTower(output_dim=trans_dim, dtype=dtype)
+    tower.reset_parameters(torch.Generator().manual_seed(2))
+    logger.warning("no --clip_path: CLIP teacher is randomly initialised")
+    return tower
+
+
 def load_teacher_checkpoint(teacher: torch.nn.Module, ckpt_dir: str, logger) -> None:
     """The latest step of a teacher pretrain's checkpoint directory into the
     teacher, strictly (every tensor, BN buffers included)."""
@@ -316,7 +337,6 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Train; returns the epoch records written to ``log.txt``."""
     args = parse_args(argv)
     legacy = resolve_student_variant(args)
-    refuse_not_ported(args)
     dev = setup_mesh(args)
     # fp32 products in fp32, as chip_smoke.py checks them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -357,6 +377,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             else:
                 logger.warning("no teacher weights given: teacher is randomly initialised")
             teacher = teacher.to(dev)
+        elif args.learn_feature_loss == "clip":
+            teacher = build_clip_teacher(args, student.trans_dim, dtype, logger).to(dev)
         if not args.shared_opt:
             # the reference never schedules the loss-prediction optimizer: constant lr
             optimizer = build_gm3d_separated_optimizer(student, sched(0), wd,

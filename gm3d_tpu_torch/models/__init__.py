@@ -1,6 +1,7 @@
 """Models of the port: PointTransformer classifier, the part-segmentation
 model PointMAESeg, the encoders of Point-MAE and the GM3D student, and the
-hierarchical Point-M2AE with its classifier and seg model. All
+hierarchical Point-M2AE with its classifier and seg model, and the CLIP
+vision tower of the ``clip`` distillation. All
 are ``nn.Module``s with a configurable compute dtype; parameters are fp32 and
 carry the reference's names (the segmentation head, which the reference does
 not ship, the JAX package's)."""
@@ -15,6 +16,7 @@ from gm3d_tpu_torch.models.blocks import (
     TransformerDecoder,
     TransformerEncoder,
 )
+from gm3d_tpu_torch.models.clip import CLIPVisionTower
 from gm3d_tpu_torch.models.gm3d import GM3DStudent
 from gm3d_tpu_torch.models.m2ae import M2AEEncoder, PointM2AE, PointM2AEClassifier, PointM2AESeg
 from gm3d_tpu_torch.models.point_transformer import Classifier, ClsHead, PointTransformer
@@ -41,4 +43,5 @@ __all__ = [
     "PointM2AE",
     "PointM2AEClassifier",
     "PointM2AESeg",
+    "CLIPVisionTower",
 ]

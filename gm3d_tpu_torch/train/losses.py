@@ -13,18 +13,20 @@ import torch.nn.functional as F
 
 from gm3d_tpu_torch.models.pointmae import take_groups
 from gm3d_tpu_torch.ops.chamfer import chamfer_group, chamfer_l1, chamfer_l2
+from gm3d_tpu_torch.ops.emd import emd_loss
 
 
 def pointmae_reconstruction_loss(rebuild: torch.Tensor, gt: torch.Tensor,
                                  loss_type: str = "cdl2") -> torch.Tensor:
-    """Scalar reconstruction loss over all masked patches (cdl1 / cdl2)."""
-    if loss_type == "emd":
-        raise NotImplementedError("the EMD loss waits for the port of ops/emd.py")
+    """Scalar reconstruction loss over all masked patches (config ``model.loss``:
+    cdl1 / cdl2 / emd, the last the mean Sinkhorn EMD of ``ops/emd.py``)."""
     batch, num_mask, group_size, _ = rebuild.shape
     a = rebuild.reshape(batch * num_mask, group_size, 3).to(torch.float32)
     b = gt.reshape(batch * num_mask, group_size, 3).to(torch.float32)
     if loss_type == "cdl1":
         return chamfer_l1(a, b)
+    if loss_type == "emd":
+        return emd_loss(a, b).mean()
     return chamfer_l2(a, b)
 
 

@@ -30,8 +30,10 @@ three FPS and three KNN launches) between their passes.
 
 ``quantize_ema`` runs the EMA pass's dense products as dynamic int8
 (``serve/quantize.py::quantized_dense``); the fused patch embed and attention
-of that pass stay fp32 on the card, as the JAX step's fused routes do. Not
-ported yet (raises ``NotImplementedError``): ``distill_mode='clip'``.
+of that pass stay fp32 on the card, as the JAX step's fused routes do.
+``distill_mode='clip'`` replaces step 7 by a frozen CLIP vision tower over
+depth renders of the full cloud (``models/clip.py``): one target token a
+group, so the fused patch embed runs once a step (the EMA pass's).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from gm3d_tpu_torch.data.transforms import scale_and_translate
 from gm3d_tpu_torch.masking import block_mask, geometric_mask, gm3d_num_mask, random_mask
 from gm3d_tpu_torch.models.blocks import fused_attention_scope
+from gm3d_tpu_torch.models.clip import CLIPVisionTower, clip_group_targets
 from gm3d_tpu_torch.models.gm3d import GM3DStudent
 from gm3d_tpu_torch.models.m2ae import PointM2AE, build_hierarchy
 from gm3d_tpu_torch.models.pointmae import PointMAE, take_groups
@@ -215,8 +218,12 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     in their compute dtype (``--bf16``: bf16 compute, fp32 parameters).
 
     ``distill_mode``: 'dino' = frozen Point-MAE teacher; 'ema' = feature
-    targets from the EMA's unmasked features, no teacher replay; 'none' =
-    usual-mode Chamfer only.
+    targets from the EMA's unmasked features, no teacher replay; 'clip' =
+    feature targets from a frozen ``CLIPVisionTower`` (the ``teacher``, its
+    ``output_dim`` the student's ``trans_dim``) over depth renders of the
+    full cloud, one patch token a group center (``clip_group_targets``);
+    'none' = usual-mode Chamfer only. Under 'ema' and 'clip' the loss is the
+    normalised feature MSE at the masked slots and ``loss_chfr`` is 0.
 
     ``shared_opt=False`` (pair it with ``build_gm3d_separated_optimizer``):
     the loss-prediction branch is detached at the encoder, so one backward
@@ -241,9 +248,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     ``mark(stage)``, if given, is called each time a stage of the step has
     been enqueued (``scripts/profile_pretrain.py`` records CUDA events there).
     """
-    if distill_mode == "clip":
-        raise NotImplementedError("distill_mode='clip' waits for the port of models/clip.py")
-    if distill_mode not in ("dino", "ema", "none"):
+    if distill_mode not in ("dino", "ema", "none", "clip"):
         raise ValueError(f"distill_mode must be 'dino', 'ema', 'none' or 'clip', "
                          f"got {distill_mode!r}")
     if quantize_ema and distill_mode == "ema":
@@ -267,10 +272,17 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             "(the separated loss consumes decoder features; use "
             "distill_mode='none' for usual mode)")
     use_ema_feats = distill_mode == "ema"
+    use_clip = distill_mode == "clip"
+    if use_clip:
+        if not isinstance(teacher, CLIPVisionTower):
+            raise ValueError("distill_mode='clip' needs a CLIPVisionTower teacher")
+        if teacher.output_dim != student.trans_dim:
+            raise ValueError(f"CLIP output_dim {teacher.output_dim} must match student "
+                             f"trans_dim {student.trans_dim} for the feature MSE")
     # two optimizers: the learning loss must not reach the encoder
     detach_lp = not shared_opt
-    same_grouping = teacher is not None and (teacher.num_group == student.num_group
-                                             and teacher.group_size == student.group_size)
+    same_grouping = use_distill and (teacher.num_group == student.num_group
+                                     and teacher.group_size == student.group_size)
     if teacher is not None:
         teacher.eval()
         for p in teacher.parameters():
@@ -316,6 +328,10 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             mask = geometric_mask(generator, outs_ema["loss_pred"], num_mask,
                                   scalars["keep_ratio"], noise=draws.get("noise"))
             mark("ema_forward_mask")
+            if use_clip:
+                # the frozen tower over renders of the full cloud: (B, G, D)
+                clip_targets = clip_group_targets(teacher, samples, grouped.center)
+                mark("clip_targets")
 
         student.train()
         remat = _Remat(student, generator, use_fused_attention) if remat_student else None
@@ -343,10 +359,12 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                 mark("teacher")
                 loss_outs = losses.gm3d_feature_loss(
                     pred_masked, teacher_feats, outs["mask_idx"], point_target, point_reco)
-            elif use_ema_feats:
-                # feature targets from the EMA's unmasked pass: normalised
-                # feature MSE at masked slots (in fp32), no point-space replay
-                target = take_groups(outs_ema["features"].detach(), outs["mask_idx"])
+            elif use_ema_feats or use_clip:
+                # feature targets from the EMA's unmasked pass or the CLIP
+                # tower: normalised feature MSE at masked slots (in fp32), no
+                # point-space replay
+                target = take_groups(clip_targets if use_clip else outs_ema["features"].detach(),
+                                     outs["mask_idx"])
                 mse = losses._normalized_feature_mse(outs["pix_pred"][:, -num_mask:], target)
                 loss_outs = {"MSE_mean": mse.mean(),
                              "Chamfer_mean": torch.zeros((), device=dev), "matrix": mse}

@@ -173,14 +173,12 @@ def test_gm3d_losses_equal_jax(name):
         _close(got, want)
 
 
-@pytest.mark.parametrize("loss_type", ["cdl1", "cdl2"])
+@pytest.mark.parametrize("loss_type", ["cdl1", "cdl2", "emd"])
 def test_pointmae_reconstruction_loss_equals_jax(loss_type):
     data = _loss_inputs()
     a, b = data["point_reco"], data["point_target"][:, :10]
     _close(tl.pointmae_reconstruction_loss(_t(a), _t(b), loss_type),
            jl.pointmae_reconstruction_loss(jnp.asarray(a), jnp.asarray(b), loss_type))
-    with pytest.raises(NotImplementedError):
-        tl.pointmae_reconstruction_loss(_t(a), _t(b), "emd")
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.2])

@@ -243,9 +243,7 @@ def test_nan_loss_exits_nonzero(monkeypatch, tmp_path):
     assert e.value.code == 1
 
 
-NOT_PORTED = [
-    ["--learn_feature_loss", "clip"], ["--num_devices", "2"], ["--native_loader"],
-]
+NOT_PORTED = [["--num_devices", "2"], ["--native_loader"]]
 
 
 @pytest.mark.parametrize("loss", ["ema", "dino"])

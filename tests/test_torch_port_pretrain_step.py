@@ -285,14 +285,6 @@ def test_other_distill_modes_one_step(mode):
     assert (got["loss_chfr"] == 0.0) if mode == "ema" else (got["loss_mse"] == 0.0)
 
 
-@pytest.mark.parametrize("option", [{"distill_mode": "clip"}])
-def test_deferred_options_raise(option):
-    student = GM3DStudent(**SMALL)
-    optimizer = build_gm3d_shared_optimizer(student, LR)
-    with pytest.raises(NotImplementedError):
-        tp.make_gm3d_train_step(student, PointMAE(**SMALL), optimizer, device="cpu", **option)
-
-
 @pytest.mark.parametrize("distill_mode", ["ema", "dino"])
 def test_quantize_ema_is_refused_under_ema_and_runs_under_dino(distill_mode):
     """``quantize_ema`` (ported; held against the JAX step in
@@ -311,30 +303,6 @@ def test_quantize_ema_is_refused_under_ema_and_runs_under_dino(distill_mode):
     _, metrics = step(state, torch.from_numpy(_clouds(3)), torch.Generator().manual_seed(0),
                       SCALARS)
     assert sorted(metrics) == sorted(KEYS) and all(np.isfinite(float(v)) for v in metrics.values())
-
-
-def _pointmae_step_with_the_emd_loss():
-    """``make_pointmae_train_step`` is ported (``tests/test_torch_port_teacher.py``);
-    what it still defers is its ``emd`` loss type, which waits for ``ops/emd.py``."""
-    from gm3d_tpu_torch.train.optim import build_legacy_adamw
-
-    model = PointMAE(**SMALL)
-    optimizer = build_legacy_adamw(model.named_parameters(), LR)
-    step = tp.make_pointmae_train_step(model, optimizer, loss_type="emd", device="cpu")
-    step(create_train_state(model, optimizer), torch.from_numpy(_clouds(0)), None)
-
-
-# what each deferred step raises, and the words that say why
-DEFERRED = {
-    "make_pointmae_train_step": (_pointmae_step_with_the_emd_loss, r"ops/emd\.py"),
-}
-
-
-@pytest.mark.parametrize("name", ["make_pointmae_train_step"])
-def test_deferred_steps_raise(name):
-    call, why = DEFERRED[name]
-    with pytest.raises(NotImplementedError, match=why):
-        call()
 
 
 def test_step_rejects_a_foreign_state_and_unknown_modes():
