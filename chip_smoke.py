@@ -183,6 +183,22 @@ Phases, each printing one JSON line when it ends:
               Point-MAE step with ``loss: emd`` at full width (``config.yaml``'s
               model, B 256, mask 0.6) beside the ``cdl2`` step: ms, peak memory,
               launches (FPS and KNN only)
+  ddp         data parallelism (``parallel/``): the full-width GM3D step (B 256
+              x 1,024, 384 wide, 12-layer encoder, fp32) through the
+              data-parallel path at world size 1 over NCCL in this process, then
+              two ranks on this one card over gloo (``torchrun
+              --nproc_per_node 2 -m gm3d_tpu_torch.scripts.ddp_step --device
+              cuda:0``, B 128 each), each against the plain step of B 256 on the
+              same weights, clouds and draws: losses within ``DDP_TOL``, the
+              ranks' metrics equal, each rank's kernel launches a step the plain
+              step's; wall ms a step of each set-up beside the plain step's (the
+              two ranks share one card: no scaling figure)
+  native_loader  the GM3D pretrain CLI for one epoch of four steps over a
+              ShapeNet-55-layout directory of ``.npy`` clouds from ``--seed``
+              (``scripts/make_disk_datasets.py``), with the Python loader and
+              with ``--native_loader`` (the C++ loader built by ``g++`` here):
+              records, the five kernels' launches, the epoch's clouds/s of each
+              and each loader's alone over the same files
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -3486,9 +3502,156 @@ def phase_emd(env: dict, tmp: str) -> dict:
     return {"launches": launches}
 
 
+# the ddp phase: the data-parallel step against the plain one on the same draws
+# (fp32 sums in other orders: per-rank GEMM shapes, the two-pass global batch
+# norm, the attention backward's atomic weight gradients)
+DDP_STEPS, DDP_TOL, DDP_RANKS, DDP_TIMEOUT_S = 3, 1e-5, 2, 420
+
+
+def _run_ranks(args: list, log_path: str, timeout: float) -> None:
+    """``torchrun`` in a session of its own: killed with every rank it started
+    when it outlives ``timeout``."""
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", *args],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"torchrun exited {rc}:\n{f.read()[-4000:]}")
+
+
+def _ddp_compare(name: str, run: dict, plain: dict) -> dict:
+    rel = [max(abs(m[k] - p[k]) / max(abs(p[k]), 1e-12) for k in ("loss", "loss_recon"))
+           for m, p in zip(run["metrics"], plain["metrics"])]
+    check(len(rel) == DDP_STEPS and max(rel) <= DDP_TOL,
+          f"{name}: losses {run['metrics']} against the plain step's {plain['metrics']}")
+    check(run["launches"] == plain["launches"],
+          f"{name}: launches {run['launches']}, the plain step's {plain['launches']}")
+    return {"rel_diff_loss_per_step": rel, "tol": DDP_TOL,
+            "launches_per_step": run["launches"][0], "ms_wall_per_step": run["ms_wall"],
+            "gradient_bytes": run["gradient_bytes"],
+            "allreduce_ms_wall": run["allreduce_ms_wall"]}
+
+
+def phase_ddp(env: dict, tmp: str, seed: int) -> dict:
+    """The data-parallel GM3D step at full width: world size 1 over NCCL and
+    two ranks on this card over gloo, against the plain step."""
+    import torch.distributed as dist
+
+    from gm3d_tpu_torch.parallel.context import get_context
+    from gm3d_tpu_torch.parallel.multihost import register_process_group, shutdown
+    from gm3d_tpu_torch.scripts import ddp_step
+
+    t_phase = time.perf_counter()
+    part_s = {}
+    check(get_context() is None, "a data-parallel context before the phase")
+    # no group yet: one process on the whole global batch
+    plain = ddp_step.run_steps(DEV, TRAIN_BATCH, DDP_STEPS, seed)
+    part_s["plain"] = time.perf_counter() - t_phase
+    check(all(c == LAUNCHES_PER_STEP for c in plain["launches"]), plain["launches"])
+    # world size 1 over NCCL in this process: every collective of the path runs
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        register_process_group(DEV)
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        nccl = ddp_step.run_steps(DEV, TRAIN_BATCH, DDP_STEPS, seed)
+    finally:
+        shutdown()
+    part_s["world1_nccl"] = time.perf_counter() - t_phase - sum(part_s.values())
+    res = {"phase": "ddp", "batch": TRAIN_BATCH, "npoints": NPOINTS, "steps": DDP_STEPS,
+           "plain": {"metrics": plain["metrics"], "ms_wall_per_step": plain["ms_wall"]},
+           "world1_nccl": _ddp_compare("world size 1 over NCCL", nccl, plain)}
+    # two ranks on this one card over gloo (NCCL refuses two ranks on one GPU)
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "ddp")
+    _run_ranks(["--nproc_per_node", str(DDP_RANKS), "--master_addr", "127.0.0.1",
+                "--master_port", str(_free_port()), "-m", "gm3d_tpu_torch.scripts.ddp_step",
+                "--device", "cuda:0", "--batch", str(TRAIN_BATCH), "--steps", str(DDP_STEPS),
+                "--seed", str(seed), "--out", out], os.path.join(tmp, "ddp.log"), DDP_TIMEOUT_S)
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(r["backend"] == "gloo" and r["world"] == DDP_RANKS
+              and r["batch_per_rank"] == TRAIN_BATCH // DDP_RANKS for r in ranks), ranks)
+    check(ranks[0]["metrics"] == ranks[1]["metrics"], "the ranks' metrics differ")
+    res["two_ranks_one_card_gloo"] = {
+        "batch_per_rank": TRAIN_BATCH // DDP_RANKS,
+        "ranks": [_ddp_compare(f"rank {r['rank']} of 2", r, plain) for r in ranks],
+        "note": "two processes share one card: the times are no scaling figure"}
+    part_s["two_ranks"] = time.perf_counter() - t_phase - sum(part_s.values())
+    # the plain step again, for the times in turns
+    again = ddp_step.run_steps(DEV, TRAIN_BATCH, DDP_STEPS, seed)
+    res["plain_again_ms_wall_per_step"] = again["ms_wall"]
+    part_s["plain_again"] = time.perf_counter() - t_phase - sum(part_s.values())
+    res.update(part_s=part_s, phase_s=time.perf_counter() - t_phase, gpu=env["gpu"])
+    emit(res)
+    return {"launches": {k: sum(c[k] for c in nccl["launches"]) for k in LAUNCHES_PER_STEP}}
+
+
+# the native_loader phase: ShapeNet-55-layout clouds on disk and the SVM sets
+NL_CLOUDS, NL_POINTS, NL_SVM = 1024, 2048, (256, 128)
+
+
+def _loader_clouds_per_s(loader) -> float:
+    t0 = time.perf_counter()
+    n = sum(len(batch) for batch in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_native_loader(env: dict, tmp: str, seed: int) -> dict:
+    """One epoch of the GM3D pretrain CLI through the Python loader and
+    through ``--native_loader`` over the same ``.npy`` files."""
+    from gm3d_tpu_torch.cli.common import load_config, make_train_loader
+    from gm3d_tpu_torch.scripts import make_disk_datasets as disk
+
+    t_phase = time.perf_counter()
+    shapenet = disk.write_shapenet55(os.path.join(tmp, "shapenet"), NL_CLOUDS, 16, NL_POINTS,
+                                     seed)
+    modelnet = disk.write_modelnet(os.path.join(tmp, "modelnet"), *NL_SVM, NPOINTS, seed)
+    config = disk.pretrain_config(os.path.join(tmp, "disk.yaml"), GM3D_CONFIG, shapenet,
+                                  modelnet)
+    probe_batches = sum(-(-n // (2 * TRAIN_BATCH)) for n in NL_SVM)
+    want = {k: v * (NL_CLOUDS // TRAIN_BATCH) + (probe_batches if k in ("fps", "knn") else 0)
+            for k, v in LAUNCHES_PER_STEP.items()}
+    res = {"phase": "native_loader", "clouds": NL_CLOUDS, "points_a_file": NL_POINTS,
+           "batch": TRAIN_BATCH, "runs": []}
+    # in turns: the first CLI run of a process pays the allocator's growth
+    for turn, name in enumerate(("python", "native", "native", "python")):
+        extra = ["--native_loader"] if name == "native" else []
+        out = os.path.join(tmp, f"nl_{turn}_{name}")
+        flags = ["--config", config, "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
+                 "--num_workers", "4", "--sync_probe", "--output_dir", out, *extra]
+        _fresh_cli_logger()
+        pp.reset_launches()
+        records = pretrain_cli.main(flags)
+        launches = pp.read_launches()
+        check(len(records) == 1 and set(records[0]) == CLI_RECORD_KEYS
+              and records[0]["steps"] == NL_CLOUDS // TRAIN_BATCH
+              and all(np.isfinite(records[0][k]) for k in CLI_RECORD_KEYS), records)
+        check(launches == want, f"{name} loader run: launches {launches}, expected {want}")
+        args = pretrain_cli.parse_args(flags)
+        loader = make_train_loader(load_config(args), args)
+        check(type(loader.loader).__name__ == ("NativeCloudLoader" if extra else "_points_only"),
+              type(loader.loader))
+        res["runs"].append({"loader": name, "record": records[0], "launches": launches,
+                            "cli_clouds_per_sec": records[0]["clouds_per_sec"],
+                            "loader_alone_clouds_per_s": _loader_clouds_per_s(loader)})
+    res.update(phase_s=time.perf_counter() - t_phase, gpu=env["gpu"])
+    emit(res)
+    return {"launches": res["runs"][1]["launches"]}
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
           "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae",
-          "evaluate", "clip", "emd")
+          "evaluate", "clip", "emd", "ddp", "native_loader")
 
 
 def main() -> None:
@@ -3546,6 +3709,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         clipped = phase_clip(env, tmp) if "clip" in phases else None
         emded = phase_emd(env, tmp) if "emd" in phases else None
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = phase_ddp(env, tmp, cli_args.seed) if "ddp" in phases else None
+        native = phase_native_loader(env, tmp, cli_args.seed) if "native_loader" in phases else None
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:
@@ -3579,6 +3745,11 @@ def main() -> None:
         # step's four (FPS and KNN only, as the JAX step routes it)
         kern["launches_clip"] = clipped["launches"][kern["name"]]
         kern["launches_emd"] = emded["launches"][kern["name"]]
+        # the data-parallel step at world size 1 over NCCL (each rank of the
+        # two-rank run launches the plain step's: the phase line); one pretrain
+        # CLI epoch through the native loader, with its SVM probe
+        kern["launches_ddp"] = parallel["launches"][kern["name"]]
+        kern["launches_native_loader"] = native["launches"][kern["name"]]
         if kern["name"] == "knn":
             # the feature propagation's shape: 2,048 queries on 128 references, k 3
             kern["seg_propagation"] = segmented["knn_propagation"]

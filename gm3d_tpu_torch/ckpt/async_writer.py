@@ -31,6 +31,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from gm3d_tpu_torch.ckpt.checkpoint import capture
+from gm3d_tpu_torch.parallel.multihost import is_main_process
 
 
 def tensors_of(tree: Any) -> List[torch.Tensor]:
@@ -94,6 +95,8 @@ class AsyncCheckpointWriter:
         self._buffers: Optional[List[torch.Tensor]] = None
 
     def submit(self, state: Any, save_fn: Callable[[Any], None]) -> None:
+        if not is_main_process():
+            return  # only rank 0 writes checkpoints: no snapshot elsewhere
         if not self._enabled:
             save_fn(state)
             return

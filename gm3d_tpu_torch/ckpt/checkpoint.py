@@ -17,7 +17,10 @@ orbax's commit does. As in orbax, a save at a step not above the latest one
 is skipped, and only the newest ``max_to_keep`` steps are kept.
 
 The two JSON sidecars (best metrics, loader position) are written exactly as
-the JAX functions write them.
+the JAX functions write them. Under data parallelism only rank 0 writes
+(each save is a no-op on the other ranks, whose state is the same); every
+rank reads. A checkpoint holds the single-process keys, so a run resumes in
+either layout.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Any, Mapping, Optional, Union
 
 import torch
 
+from gm3d_tpu_torch.parallel.multihost import is_main_process
 from gm3d_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pth"
@@ -57,6 +61,8 @@ def load_loader_state(ckpt_dir: str) -> dict:
 
 
 def _write_json(ckpt_dir: str, name: str, obj: dict) -> None:
+    if not is_main_process():
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name)
     tmp = path + ".tmp"
@@ -102,7 +108,10 @@ def save_checkpoint(ckpt_dir: str, state: Union[TrainState, Mapping[str, Any]], 
     """Save ``state`` (a ``TrainState`` or the dict ``capture`` makes of one)
     as step ``step``; keep the newest ``max_to_keep`` steps. Tensors are
     written from the host, so a checkpoint restores on any device. Returns
-    False, and writes nothing, when ``step`` is not above the latest step."""
+    False, and writes nothing, when ``step`` is not above the latest step,
+    and on a rank other than 0."""
+    if not is_main_process():
+        return False
     last = latest_step(ckpt_dir)
     if last is not None and last >= step:
         return False

@@ -2,20 +2,29 @@
 
 Port of ``gm3d_tpu/cli/common.py``: the same flags, config overrides and
 loaders. What differs: ``--device`` (the port takes an explicit device, and
-runs on the GPU unless asked for the CPU); ``setup_mesh`` is a device check,
-one device only; ``resolve_batch_floor`` is always 0 (the floor works around
-a TPU compiler bug).
+runs on the GPU unless asked for the CPU); ``setup_mesh`` joins the
+``torchrun`` process group, one process per GPU (``parallel/``), where the
+JAX package builds a device mesh; ``resolve_batch_floor`` is always 0 (the
+floor works around a TPU compiler bug).
+
+Under data parallelism every rank runs the same loaders from the same seed
+(the JAX loader contract: every host holds the full global batch) and keeps
+its rows: the train loaders through ``shard_batch``, the SVM probe's over a
+contiguous block of the set, whose features ``gather_features`` joins.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 
 import torch
 
 from gm3d_tpu_torch.config import cfg_from_yaml_file
 from gm3d_tpu_torch.data.datasets import DataLoader, SyntheticClouds, build_dataset_from_cfg
+from gm3d_tpu_torch.parallel.context import active
+from gm3d_tpu_torch.parallel.mesh import check_global_batch, make_mesh, shard_batch
 from gm3d_tpu_torch.utils.device import resolve_device
 
 
@@ -44,13 +53,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--synthetic_samples", type=int, default=512)
     p.add_argument("--bf16", action="store_true", help="bf16 compute dtype")
     p.add_argument("--native_loader", action="store_true",
-                   help="the C++ threaded cloud loader; not ported yet "
-                        "(item 10): raises")
+                   help="read ShapeNet-style .npy datasets with the C++ threaded "
+                        "cloud loader (gm3d_tpu_torch/native, built with g++ at "
+                        "first use; a failed build raises)")
     p.add_argument("--num_workers", type=int, default=4,
                    help="threads that materialise the loader's batches")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel devices; the port runs on one, more "
-                        "raise (item 8)")
+                   help="data-parallel processes, one a GPU, launched by torchrun "
+                        "--nproc_per_node N; where given, it must equal torchrun's "
+                        "WORLD_SIZE (default: the world size, 1 without torchrun)")
     p.add_argument("--sync_save", action="store_true",
                    help="write checkpoints synchronously (the default copies the "
                         "state on the device and writes it from a background thread)")
@@ -71,15 +82,14 @@ def resolve_batch_floor(args, logger=None) -> int:
 
 
 def setup_mesh(args) -> torch.device:
-    """The training CLIs' device check, in place of the JAX package's
-    data-parallel mesh: the device of ``--device`` (raises when it is CUDA
-    and there is none). More than one device raises until the multi-GPU
-    item of ``ROADMAP.md`` (Queue 1 item 8)."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: data parallelism over several GPUs is not "
-            "ported yet (ROADMAP.md Queue 1 item 8); the port trains on one device")
-    return resolve_device(args.device)
+    """The training CLIs' data mesh (``parallel/mesh.py::make_mesh``):
+    under ``torchrun`` this process joins the group (NCCL with a card a rank
+    for ``--device cuda``, gloo for ``--device cpu`` or ``--device cuda:K``,
+    where every rank shares card K); ``--num_devices``, where given, must be
+    the world size. Returns this rank's device (raises when it is CUDA and
+    there is none)."""
+    ctx = make_mesh(args.num_devices, args.device)
+    return ctx.device if ctx is not None else resolve_device(args.device)
 
 
 def load_config(args):
@@ -98,17 +108,31 @@ def compute_dtype(args) -> torch.dtype:
 
 def make_train_loader(cfg, args):
     """The train loader: bare points (ShapeNet contract), shuffled by
-    ``(--seed, epoch)``, ``--num_workers`` threads."""
-    if args.native_loader:
-        raise NotImplementedError(
-            "--native_loader (the C++ threaded cloud loader) is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+    ``(--seed, epoch)``, ``--num_workers`` threads; with ``--native_loader``
+    on an on-disk ShapeNet-style set, the C++ loader (``native/``) over its
+    ``.npy`` files, ``--num_workers`` threads (at least one). On
+    ``--synthetic`` or a set that is not a list of ``.npy`` files the flag is
+    ignored with a warning, as the JAX CLI ignores it. Under data
+    parallelism each rank keeps its rows of every global batch."""
+    bs = cfg["total_bs"]
+    check_global_batch(bs)
+    npoints = cfg.get("npoints", 1024)
     if args.synthetic:
-        train_ds = SyntheticClouds(args.synthetic_samples, cfg.get("npoints", 1024), seed=1)
+        train_ds = SyntheticClouds(args.synthetic_samples, npoints, seed=1)
     else:
         train_ds = build_dataset_from_cfg(cfg["dataset"]["train"])
-    return _points_only(DataLoader(train_ds, cfg["total_bs"], seed=args.seed,
-                                   num_workers=args.num_workers))
+    if args.native_loader:
+        if hasattr(train_ds, "file_list"):
+            from gm3d_tpu_torch.native import NativeCloudLoader
+
+            paths = [os.path.join(train_ds.pc_path, f) for _, _, f in train_ds.file_list]
+            return rank_rows(NativeCloudLoader(paths, npoints, bs,
+                                               num_workers=args.num_workers, seed=args.seed))
+        logging.getLogger("gm3d").warning(
+            "--native_loader reads on-disk ShapeNet-style .npy sets; this set is read by "
+            "the Python loader")
+    return rank_rows(_points_only(DataLoader(train_ds, bs, seed=args.seed,
+                                             num_workers=args.num_workers)))
 
 
 def make_loaders(cfg, args):
@@ -131,6 +155,42 @@ def make_loaders(cfg, args):
     return train_loader, svm_train, svm_test
 
 
+def rank_block_loader(loader):
+    """An evaluation loader (``make_loaders``' SVM loaders) over this rank's
+    contiguous block of its set (``rank_block``), same batch size and order;
+    the loader itself for one process."""
+    if active() is None:
+        return loader
+    inner = loader.loader
+    return _labelled(DataLoader(rank_block(inner.dataset), inner.batch_size, shuffle=False,
+                                drop_last=False, num_workers=inner.num_workers))
+
+
+class rank_block:
+    """This rank's contiguous block of a dataset's items (the whole set for
+    one process): ranks take ``numpy.array_split``'s blocks in rank order, so
+    features extracted block by block and gathered in rank order
+    (``gather_features``) are the single-process matrix row for row."""
+
+    def __init__(self, dataset):
+        ctx = active()
+        n = len(dataset)
+        world, rank = (1, 0) if ctx is None else (ctx.world, ctx.rank)
+        self.dataset = dataset
+        self.start = rank * (n // world) + min(rank, n % world)
+        self.stop = self.start + n // world + (rank < n % world)
+
+    def __len__(self):
+        return self.stop - self.start
+
+    def __getitem__(self, idx):
+        return self.dataset[self.start + idx]
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+
 def make_cls_loaders(cfg, args):
     """(train_loader, val_loader) of the finetune CLI, each yielding (points,
     labels): on ``--synthetic``, labelled clouds in the config's ``cls_dim``
@@ -150,8 +210,9 @@ def make_cls_loaders(cfg, args):
         train_ds = build_dataset_from_cfg(cfg["dataset"]["train"])
         val_ds = build_dataset_from_cfg(cfg["dataset"]["val"])
     workers = getattr(args, "num_workers", 0)
+    check_global_batch(bs)
     return (
-        _labelled(DataLoader(train_ds, bs, seed=args.seed, num_workers=workers)),
+        rank_rows(DataLoader(train_ds, bs, seed=args.seed, num_workers=workers)),
         _labelled(DataLoader(val_ds, bs, shuffle=False, drop_last=False,
                              num_workers=workers)),
     )
@@ -169,6 +230,25 @@ class _points_only:
             yield batch[0] if isinstance(batch, tuple) else batch
 
     def __getattr__(self, name):  # state()/load_state()/epoch passthrough
+        return getattr(self.loader, name)
+
+
+class rank_rows:
+    """A global-batch loader whose batches keep this rank's rows
+    (``shard_batch``); the identity for one process. ``state`` and the rest
+    pass through."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield shard_batch(batch)
+
+    def __getattr__(self, name):
         return getattr(self.loader, name)
 
 

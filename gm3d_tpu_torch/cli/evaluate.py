@@ -31,7 +31,10 @@ test_net / test_vote, ``main_pretrain.py:633-717``, ``main_knn.py``,
 step, or ``.../ckpt/best``); a path without one raises ``FileNotFoundError``.
 Without ``--ckpt`` the CLI warns and scores weights drawn from a seed (smoke
 runs). Runs on the GPU unless ``--device cpu``; ``--batch_floor`` is a no-op.
-The features and the probes' fits stay on the device.
+The features and the probes' fits stay on the device. Under ``torchrun
+--nproc_per_node N`` the evaluation batches are split over ranks
+(``run_eval_batch``), and the feature probes extract each rank's block of the
+sets and gather it (``gather_features``); every rank reports the same number.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from gm3d_tpu_torch.cli.common import (
     load_config,
     make_cls_loaders,
     make_loaders,
+    rank_block_loader,
     setup_mesh,
 )
 from gm3d_tpu_torch.config import build_model_from_cfg
@@ -123,9 +127,11 @@ def run_feature_probe(args, cfg, logger, dev: torch.device) -> float:
     from gm3d_tpu_torch.eval.knn import knn_classifier
     from gm3d_tpu_torch.eval.linear_probe import linear_probe
     from gm3d_tpu_torch.eval.svm import evaluate_svm, extract_features, make_feature_fn
+    from gm3d_tpu_torch.parallel.multihost import gather_features
 
     npoints = cfg.get("npoints", 1024)
     _, svm_train, svm_test = make_loaders(cfg, args)
+    svm_train, svm_test = rank_block_loader(svm_train), rank_block_loader(svm_test)
     model = build_feature_model(args, cfg, compute_dtype(args), logger)
     multi_scale = hasattr(model, "svm_scales")
     dual_protocol = args.svm_scales == "both"
@@ -140,8 +146,8 @@ def run_feature_probe(args, cfg, logger, dev: torch.device) -> float:
     model = model.to(dev)
 
     feature_fn = make_feature_fn(model, npoints)
-    tr_f, tr_l = extract_features(feature_fn, svm_train, dev)
-    te_f, te_l = extract_features(feature_fn, svm_test, dev)
+    tr_f, tr_l = gather_features(*extract_features(feature_fn, svm_train, dev))
+    te_f, te_l = gather_features(*extract_features(feature_fn, svm_test, dev))
     if dual_protocol:
         last_dim = int(model.encoder_dims[-1])
         acc_all = evaluate_svm(tr_f, tr_l, te_f, te_l)

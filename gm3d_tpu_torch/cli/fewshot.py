@@ -25,7 +25,11 @@ generators, and the flag is accepted for both values (training the folds
 together on the card is ``ROADMAP.md`` Queue 1 item 4c).
 
 Runs on the GPU unless ``--device cpu`` is given; ``--batch_floor`` is a
-no-op; ``--num_devices`` above 1 raises (item 8). A Point-M2AE config
+no-op. Under ``torchrun --nproc_per_node N`` the folds are dealt to ranks,
+fold f to rank f mod N, each run whole on its rank as in one process
+(``replica_scope``) with its own generators, and the accuracies are summed
+over ranks: the same numbers as one process computes, as the JAX CLI's
+folds over devices are. A Point-M2AE config
 (``configs/m2ae/fewshot-Point-M2AE.yaml``: label smoothing 0.3) trains the
 hierarchical classifier.
 """
@@ -38,12 +42,15 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gm3d_tpu_torch.ckpt.transfer import load_pretrained_into
 from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config, setup_mesh
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.data.datasets import DataLoader, SyntheticClouds, build_dataset_from_cfg
 from gm3d_tpu_torch.eval.metrics import accuracy
+from gm3d_tpu_torch.parallel.context import get_context, replica_scope
+from gm3d_tpu_torch.parallel.mesh import barrier
 from gm3d_tpu_torch.train.finetune import make_eval_step, make_finetune_train_step
 from gm3d_tpu_torch.train.optim import build_legacy_adamw, set_scheduled_lr
 from gm3d_tpu_torch.train.schedules import legacy_cosine_epoch_schedule
@@ -153,6 +160,21 @@ def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
     return best
 
 
+def run_folds(args, cfg, logger, dev: torch.device) -> List[float]:
+    """Every fold's best accuracy, in fold order: fold f runs on rank f mod
+    the world size, as one process, and the accuracies are summed over
+    ranks on the host group."""
+    ctx = get_context()
+    world, rank = (1, 0) if ctx is None else (ctx.world, ctx.rank)
+    accs = torch.zeros(args.folds, dtype=torch.float64)
+    with replica_scope():
+        for fold in range(rank, args.folds, world):
+            accs[fold] = run_fold(args, cfg, fold, logger, dev)
+    if ctx is not None:
+        dist.all_reduce(accs, group=ctx.host_group)
+    return accs.tolist()
+
+
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Run every fold; returns the record written to ``log.txt``, in a list."""
     args = parse_args(argv)
@@ -165,12 +187,13 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
     if args.batch_floor:
         logger.info("--batch_floor is a no-op on the GPU")
-    accs = [run_fold(args, cfg, fold, logger, dev) for fold in range(args.folds)]
+    accs = run_folds(args, cfg, logger, dev)
     mean, std = float(np.mean(accs)), float(np.std(accs))
     logger.info(f"{args.way}-way {args.shot}-shot over {args.folds} folds: "
                 f"{mean:.1f} +/- {std:.1f}")
     record = {"way": args.way, "shot": args.shot, "mean": mean, "std": std, "accs": accs}
     jsonl.write(record)
+    barrier()
     return [record]
 
 

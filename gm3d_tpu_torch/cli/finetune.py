@@ -25,8 +25,10 @@ what ``cli/export_model.py --ckpt`` exports for serving.
 Runs on the GPU unless ``--device cpu`` is given. ``--steps_per_dispatch``
 groups the steps as the JAX CLI does but runs them one by one (eager
 PyTorch has no dispatch to amortise); ``--batch_floor`` is a no-op (a TPU
-compiler workaround); ``--num_devices`` above 1 raises (``ROADMAP.md``
-Queue 1 item 8).
+compiler workaround). Data-parallel over N GPUs with ``torchrun
+--nproc_per_node N`` (``parallel/``): each rank trains on its rows of the
+global batch, and the validation and vote batches are split over ranks
+(a ragged last batch is computed whole on every rank); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from gm3d_tpu_torch.cli.common import (
     setup_mesh,
 )
 from gm3d_tpu_torch.config import build_model_from_cfg
+from gm3d_tpu_torch.parallel.mesh import barrier, replicate_tree, run_eval_batch
 from gm3d_tpu_torch.data.prefetch import device_prefetch
 from gm3d_tpu_torch.eval.metrics import accuracy
 from gm3d_tpu_torch.train.finetune import (
@@ -183,10 +186,12 @@ def vote_gate(acc: float, better: bool) -> bool:
 
 def evaluate(loader, eval_step) -> float:
     """Accuracy in percent of ``eval_step``'s logits over the loader. The
-    logits stay on the device until the last batch is enqueued."""
+    logits stay on the device until the last batch is enqueued. Under data
+    parallelism each rank computes its rows of a batch and the logits are
+    gathered (``run_eval_batch``)."""
     logits_all, labels_all = [], []
     for pts, labels in loader:
-        logits_all.append(eval_step(torch.as_tensor(pts)))
+        logits_all.append(run_eval_batch(eval_step, torch.as_tensor(pts)))
         labels_all.append(np.asarray(labels))
     return accuracy(torch.cat(logits_all).float().cpu().numpy(),
                     np.concatenate(labels_all)) * 100.0
@@ -338,6 +343,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             if loader_token:
                 start_epoch = int(loader_token.get("epoch", start_epoch))
         train_loader.load_state(loader_token or {"epoch": start_epoch, "batch": 0})
+        replicate_tree(model)  # every rank starts from rank 0's weights
         last_saved_step = state.step
         for epoch in range(start_epoch, epochs):
             meter = MetricLogger()
@@ -441,6 +447,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             logger.info(f"best in-training vote acc {best_vote:.2f} (ckpt/best_vote)")
     if latest_step(ckpt_dir) != state.step:  # a run with no epoch left to train
         save_checkpoint(ckpt_dir, state, state.step)
+    barrier()  # the other ranks wait for rank 0's last writes
     logger.info(f"best val acc {best:.2f}")
     return records
 

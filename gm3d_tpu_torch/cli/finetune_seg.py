@@ -23,14 +23,18 @@ what ``cli/export_model.py --mode segmentation --ckpt`` exports for serving.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--steps_per_dispatch``
 groups the steps as the JAX CLI does but runs them one by one;
-``--batch_floor`` is a no-op; ``--native_loader`` (``ROADMAP.md`` Queue 1
-item 10) and ``--num_devices`` above 1 (item 8) raise. A Point-M2AE config
+``--batch_floor`` is a no-op. ``--native_loader`` reads the ShapeNetPart
+``.npy`` caches with the C++ loader (``native/``), as the JAX CLI does.
+Data-parallel over N GPUs with ``torchrun --nproc_per_node N``
+(``parallel/``): each rank trains on its rows of the global batch, the
+validation batches are split over ranks, rank 0 writes. A Point-M2AE config
 (``configs/m2ae/seg_shapenetpart_PointM2AE.yaml``) trains ``PointM2AESeg``.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 from typing import List, Optional
@@ -49,10 +53,17 @@ from gm3d_tpu_torch.ckpt.checkpoint import (
     save_loader_state,
 )
 from gm3d_tpu_torch.ckpt.transfer import load_pretrained_into
-from gm3d_tpu_torch.cli.common import base_parser, compute_dtype, load_config, setup_mesh
+from gm3d_tpu_torch.cli.common import (
+    base_parser,
+    compute_dtype,
+    load_config,
+    rank_rows,
+    setup_mesh,
+)
 from gm3d_tpu_torch.config import build_model_from_cfg
 from gm3d_tpu_torch.data.datasets import SEG_CLASSES, DataLoader, build_dataset_from_cfg
 from gm3d_tpu_torch.data.prefetch import device_prefetch
+from gm3d_tpu_torch.parallel.mesh import barrier, check_global_batch, replicate_tree
 from gm3d_tpu_torch.train.optim import build_finetune_optimizer, set_scheduled_lr
 from gm3d_tpu_torch.train.schedules import cosine_warmup_schedule
 from gm3d_tpu_torch.train.segmentation import (
@@ -121,11 +132,12 @@ def make_seg_loaders(cfg, args):
     validation seed 2, a quarter as many and at least 32); else the config's
     ``dataset.train`` and ``dataset.val``. The train loader shuffles by
     ``(--seed, epoch)``; validation keeps its order and its last partial
+    batch. With ``--native_loader`` on the on-disk set (without normals),
+    the train loader is the C++ one over the items' ``.npy`` caches, written
+    first where missing; where they cannot be written (a read-only dataset
+    directory), the Python loader reads the set, with a warning, as in the
+    JAX CLI. Under data parallelism each rank keeps its rows of every train
     batch."""
-    if args.native_loader:
-        raise NotImplementedError(
-            "--native_loader (the C++ threaded cloud loader) is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
     npoints = cfg.get("npoints", 2048)
     if args.synthetic:
         train_ds = SyntheticParts(args.synthetic_samples, npoints, seed=1)
@@ -134,9 +146,41 @@ def make_seg_loaders(cfg, args):
         train_ds = build_dataset_from_cfg(cfg["dataset"]["train"])
         val_ds = build_dataset_from_cfg(cfg["dataset"]["val"])
     bs = cfg["total_bs"]
-    return (DataLoader(train_ds, bs, seed=args.seed, num_workers=args.num_workers),
-            DataLoader(val_ds, bs, shuffle=False, drop_last=False,
-                       num_workers=args.num_workers))
+    check_global_batch(bs)
+    val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False,
+                            num_workers=args.num_workers)
+    if (args.native_loader and not args.synthetic and hasattr(train_ds, "_load_raw")
+            and not getattr(train_ds, "use_normals", False)):
+        native = native_seg_loader(train_ds, npoints, bs, args)
+        if native is not None:
+            return rank_rows(native), val_loader
+    return (rank_rows(DataLoader(train_ds, bs, seed=args.seed, num_workers=args.num_workers)),
+            val_loader)
+
+
+def native_seg_loader(train_ds, npoints: int, batch: int, args):
+    """The C++ loader over the ShapeNetPart items' (N, 7) ``.npy`` caches
+    (``x y z nx ny nz part``), yielding (points, category, part labels); the
+    caches are written once where missing. None, with a warning, where they
+    cannot be written."""
+    from gm3d_tpu_torch.native import NativeLabelledCloudLoader
+
+    logger = logging.getLogger("gm3d.seg")
+    paths, labels = [], []
+    for name, path in train_ds.files:
+        if not os.path.exists(path + ".npy"):
+            train_ds._load_raw(path)  # writes the cache atomically
+        paths.append(path + ".npy")
+        labels.append(train_ds.cls_ids[name])
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        logger.warning(f"native loader disabled: {len(missing)} .npy caches could not be "
+                       "written (read-only dataset dir?)")
+        return None
+    logger.info(f"native C++ loader over {len(paths)} cached items")
+    return NativeLabelledCloudLoader(paths, labels, npoints, batch,
+                                     num_workers=max(args.num_workers, 1), seed=args.seed,
+                                     with_seg=True)
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
@@ -216,6 +260,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             if loader_token:
                 start_epoch = int(loader_token.get("epoch", start_epoch))
         train_loader.load_state(loader_token or {"epoch": start_epoch, "batch": 0})
+        replicate_tree(model)  # every rank starts from rank 0's weights
         last_saved_step = state.step
         for epoch in range(start_epoch, epochs):
             meter = MetricLogger()
@@ -301,6 +346,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
 
     if latest_step(ckpt_dir) != state.step:  # a run with no epoch left to train
         save_checkpoint(ckpt_dir, state, state.step)
+    barrier()  # the other ranks wait for rank 0's last writes
     logger.info(f"best inst mIoU {best['instance_miou'] * 100:.2f} / "
                 f"class mIoU {best['class_miou'] * 100:.2f}")
     return records

@@ -45,9 +45,18 @@ Point-M2AE's SVM probe pools every scale (``pooled_features``), its
 ``--classification`` probe reads the coarsest tokens (``encode_features``).
 
 Runs on the GPU unless ``--device cpu`` is given. Every flag of the JAX CLI
-is accepted; ``--num_devices`` above 1 and ``--native_loader``, whose paths
-are not ported yet, raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+is accepted. Data-parallel over N GPUs, one process each::
+
+  torchrun --nproc_per_node N -m gm3d_tpu_torch.cli.pretrain --config ... --output_dir ...
+
+Every rank reads the same global batches and keeps its rows; BatchNorm
+statistics, draws, gradients and the logged metrics are the global batch's,
+so the run computes what one process computes on that batch (``parallel/``).
+Rank 0 writes the logs and checkpoints. The SVM probe extracts each rank's
+block of the sets and gathers the features on a gloo group of its own
+(``gather_features``), so its background thread never interleaves with the
+step's collectives. ``--native_loader`` reads on-disk ShapeNet-55 through
+the C++ loader (``native/``).
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ from gm3d_tpu_torch.cli.common import (
     compute_dtype,
     load_config,
     make_loaders,
+    rank_block_loader,
     resolve_batch_floor,
     setup_mesh,
 )
@@ -90,6 +100,8 @@ from gm3d_tpu_torch.masking import keep_ratio_schedule
 from gm3d_tpu_torch.models import GM3DStudent
 from gm3d_tpu_torch.models.clip import CLIPVisionTower
 from gm3d_tpu_torch.models.point_transformer import Classifier
+from gm3d_tpu_torch.parallel.context import draw_rows
+from gm3d_tpu_torch.parallel.mesh import barrier, replicate_tree, run_eval_batch
 from gm3d_tpu_torch.train.optim import (
     GM3D_COORD_HEAD,
     build_adamw,
@@ -171,7 +183,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "in a background thread on a device copy of the state while the "
                         "next epoch trains; the epoch's record is written when it ends")
     p.add_argument("--sync_bn", default=True, action=argparse.BooleanOptionalAction,
-                   help="a no-op on one device")
+                   help="BatchNorm statistics over the global batch; always on "
+                        "(--no-sync_bn is ignored with a warning, as in the JAX CLI)")
     p.add_argument("--save_interval", type=int, default=100,
                    help="epoch snapshots under <ckpt>/epochs every N epochs; 0 disables")
     p.add_argument("--profile_dir", default=None,
@@ -307,11 +320,13 @@ def load_teacher_weights(teacher: torch.nn.Module, path: str, logger) -> None:
 
 def step_draws(generator: torch.Generator, batch: int, num_group: int) -> Dict[str, torch.Tensor]:
     """One step's random draws, on the generator's device: the augmentation's
-    scale and shift (batch, 1, 3) and the mask's noise (batch, num_group)."""
+    scale and shift (batch, 1, 3) and the mask's noise (batch, num_group);
+    under data parallelism this rank's rows of the global batch's draws."""
     dev = generator.device
 
     def uniform(shape, low, high):
-        return torch.rand(shape, generator=generator, device=dev) * (high - low) + low
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), shape)
+        return u * (high - low) + low
 
     return {"scale": uniform((batch, 1, 3), 2.0 / 3.0, 3.0 / 2.0),
             "shift": uniform((batch, 1, 3), -0.2, 0.2),
@@ -345,12 +360,16 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     logger = get_logger("gm3d", os.path.join(args.output_dir, "pretrain.log"))
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
     tb = ScalarWriter(os.path.join(args.output_dir, "tfboard"))
-    logger.warning("--sync_bn is a no-op on one device; --steps_per_dispatch runs its "
-                   "steps one by one")
+    if not args.sync_bn:
+        logger.warning("--no-sync_bn ignored: BatchNorm statistics are the global batch's "
+                       "under data parallelism, as in the JAX step (no per-rank statistics)")
+    logger.info("--steps_per_dispatch runs its steps one by one")
     dtype = compute_dtype(args)
     epochs = cfg["max_epoch"]
     batch = cfg["total_bs"]
     train_loader, svm_train, svm_test = make_loaders(cfg, args)
+    # the SVM probe's sets: this rank's block of each (gathered in the probe)
+    svm_train_block, svm_test_block = rank_block_loader(svm_train), rank_block_loader(svm_test)
     steps_per_epoch = max(len(train_loader), 1)
 
     lr = effective_lr(args.blr, batch, args.accum_iter)
@@ -547,8 +566,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                     ctx = torch.cuda.stream(probe_stream)
                 with ctx:
                     probe_model.load_state_dict(snap["model"])
-                    holder["acc"] = svm_probe(probe_model, svm_train, svm_test, npoints,
-                                              resolve_batch_floor(args), stats=holder["stats"])
+                    holder["acc"] = svm_probe(probe_model, svm_train_block, svm_test_block,
+                                              npoints, resolve_batch_floor(args),
+                                              stats=holder["stats"])
             except BaseException as e:  # noqa: BLE001 - re-raised when the probe is joined
                 holder["err"] = e
 
@@ -601,6 +621,11 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             if loader_token:
                 start_epoch = int(loader_token.get("epoch", start_epoch))
         train_loader.load_state(loader_token or {"epoch": start_epoch, "batch": 0})
+        # every rank starts from rank 0's state (the same seeds and checkpoint
+        # give the same one; this makes it so)
+        for module in (state.student, state.ema, probe_state and probe_state.student):
+            if module is not None:
+                replicate_tree(module)
         last_saved_step = state.step
         for epoch in range(start_epoch, epochs):
             meter = MetricLogger()
@@ -651,10 +676,14 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                     except StopIteration:
                         probe_iter = iter(svm_train)
                         cls_pts, cls_labels = next(probe_iter)
-                    draws = probe_draws(generator, len(cls_labels))
-                    probe_state, pmetrics = probe_step(
-                        probe_state, torch.as_tensor(cls_pts), torch.as_tensor(cls_labels),
-                        generator, draws=draws)
+                    def probe_once(cls_pts, cls_labels):
+                        draws = probe_draws(generator, len(cls_labels))
+                        return probe_step(probe_state, torch.as_tensor(cls_pts),
+                                          torch.as_tensor(cls_labels), generator, draws=draws)
+
+                    # this rank's rows of the global batch (a ragged one whole)
+                    probe_state, pmetrics = run_eval_batch(probe_once, cls_pts, cls_labels,
+                                                           gather=False)
                     # read one step behind, like the train metrics
                     if pending_pmetrics is not None:
                         read_probe_metrics(meter, pending_pmetrics)
@@ -679,7 +708,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                     start_probe(stats, state.step)
                 else:
                     probe_stats = {}
-                    acc = svm_probe(feat_model, svm_train, svm_test, npoints,
+                    acc = svm_probe(feat_model, svm_train_block, svm_test_block, npoints,
                                     resolve_batch_floor(args), stats=probe_stats)
                     record_probe(stats, acc, state.step, state, probe_stats)
             # the rolling save of the epoch, its sidecar at the next epoch's start
@@ -705,6 +734,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         stop_trace(prof, args.profile_dir)
     if latest_step(ckpt_dir) != state.step:  # a run with no epoch left to train
         save_checkpoint(ckpt_dir, state, state.step)
+    barrier()  # the other ranks wait for rank 0's last writes
     logger.info(f"done: {state.step} steps; best svm acc {best_acc:.4f}")
     return records
 

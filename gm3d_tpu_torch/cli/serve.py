@@ -2,8 +2,9 @@
 
   python -m gm3d_tpu_torch.cli.serve --artifact model.gm3dx --port 8765
 
-One process, one device. See ``gm3d_tpu_torch/serve/server.py`` for the
-endpoint contract.
+One process; ``--num_devices N`` (``-1``: every local GPU) fans request
+chunks out over N GPUs, one loaded program each. See
+``gm3d_tpu_torch/serve/server.py`` for the endpoint contract.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="dispatch each request as its own padded batch "
                         "instead of coalescing concurrent requests")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="serving devices; only 1 for now (fan-out over "
-                        "several GPUs is not ported yet)")
+                   help="fan request chunks out over this many local GPUs "
+                        "(-1: all; 1: the single-device path)")
     add_device_arg(p)
     return p.parse_args(argv)
 
@@ -47,6 +48,8 @@ def main(argv: Optional[Sequence[str]] = None):
     host, port = server.server_address[:2]
     mode = (f"dynamic batching, wait<={args.batch_wait_ms}ms"
             if args.dynamic_batching else "per-request dispatch")
+    if len(server.serving_model.devices) > 1:
+        mode += f"; fan-out over {len(server.serving_model.devices)} devices"
     logger.info(f"serving {args.artifact} on http://{host}:{port} "
                 f"({mode}; device {args.device}; GET /health /info, POST /predict)")
 

@@ -15,19 +15,23 @@ from typing import Optional
 
 import torch
 
+from gm3d_tpu_torch.parallel.context import draw_rows
+
 
 def _uniform(generator: Optional[torch.Generator], shape, pts: torch.Tensor,
              low: float = 0.0, high: float = 1.0) -> torch.Tensor:
     """``shape`` uniform in [low, high), drawn on the generator's device and
-    moved to the points' device and dtype."""
+    moved to the points' device and dtype; the first axis is the batch's
+    (``draw_rows``)."""
     device = generator.device if generator is not None else pts.device
-    u = torch.rand(shape, generator=generator, device=device)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape)
     return (u * (high - low) + low).to(device=pts.device, dtype=pts.dtype)
 
 
 def _normal(generator: Optional[torch.Generator], shape, pts: torch.Tensor) -> torch.Tensor:
     device = generator.device if generator is not None else pts.device
-    return torch.randn(shape, generator=generator, device=device).to(pts)
+    return draw_rows(lambda s: torch.randn(s, generator=generator, device=device),
+                     shape).to(pts)
 
 
 def scale_and_translate(generator: Optional[torch.Generator], pts: torch.Tensor,

@@ -23,6 +23,7 @@ from torch import nn
 
 from gm3d_tpu_torch.eval.linear_svc import TOL, fit_linear_svc, predict
 from gm3d_tpu_torch.ops.fps import fps
+from gm3d_tpu_torch.parallel.multihost import gather_features
 
 SVM_C = 0.01
 
@@ -87,8 +88,8 @@ def evaluate_svm(train_features: torch.Tensor, train_labels: torch.Tensor,
 
 def svm_probe(model: nn.Module, train_loader: Iterable, test_loader: Iterable,
               npoints: int = 1024, batch_floor: int = 0, stats: Optional[dict] = None) -> float:
-    """The whole probe on ``model``'s device: features of both loaders, the
-    fit, the accuracy. ``stats``, where given, gets the wall times of the
+    """The whole probe on ``model``'s device: features of both loaders
+    (gathered over ranks under data parallelism), the fit, the accuracy. ``stats``, where given, gets the wall times of the
     feature extraction and of the fit in ms (``extract_ms``, ``fit_ms``) and
     the solver's ``iterations``."""
     device = next(model.parameters()).device
@@ -96,8 +97,10 @@ def svm_probe(model: nn.Module, train_loader: Iterable, test_loader: Iterable,
     sync = (torch.cuda.current_stream(device).synchronize if device.type == "cuda"
             else (lambda: None))
     t0 = time.perf_counter()
-    tr_f, tr_l = extract_features(feature_fn, train_loader, device)
-    te_f, te_l = extract_features(feature_fn, test_loader, device)
+    # under data parallelism each loader holds this rank's block of its set
+    # (cli/common.py::rank_block_loader): every rank fits the whole set
+    tr_f, tr_l = gather_features(*extract_features(feature_fn, train_loader, device))
+    te_f, te_l = gather_features(*extract_features(feature_fn, test_loader, device))
     sync()
     t1 = time.perf_counter()
     acc = evaluate_svm(tr_f, tr_l, te_f, te_l, stats)

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from gm3d_tpu_torch.parallel.context import draw_rows
+
 
 def _rank(x: torch.Tensor) -> torch.Tensor:
     """Per-row ascending rank of each element (0 = smallest); equal elements
@@ -22,7 +24,8 @@ def _rank(x: torch.Tensor) -> torch.Tensor:
 
 def _uniform(shape, generator, device) -> torch.Tensor:
     gen_device = generator.device if generator is not None else device
-    return torch.rand(shape, generator=generator, device=gen_device).to(device)
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=gen_device),
+                     shape).to(device)
 
 
 def random_mask(generator: Optional[torch.Generator], batch: int, num_groups: int,
@@ -42,7 +45,8 @@ def block_mask(generator: Optional[torch.Generator], centers: torch.Tensor, num_
     batch, num_groups, _ = centers.shape
     if seed is None:
         gen_device = generator.device if generator is not None else centers.device
-        seed = torch.randint(0, num_groups, (batch,), generator=generator, device=gen_device)
+        seed = draw_rows(lambda s: torch.randint(0, num_groups, s, generator=generator,
+                                                 device=gen_device), (batch,))
     seed = seed.to(centers.device).long()
     seed_pt = torch.gather(centers, 1, seed[:, None, None].expand(-1, 1, 3))  # (B, 1, 3)
     dist = ((centers - seed_pt) ** 2).sum(-1)  # (B, G)

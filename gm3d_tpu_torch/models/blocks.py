@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gm3d_tpu_torch.ops.fused_attention import fused_attention_trainable, kernel_fits
+from gm3d_tpu_torch.parallel.context import active, draw_rows
+from gm3d_tpu_torch.parallel.mesh import all_reduce_sum
 
 # reference init: trunc_normal(std=0.02) for Linear/Conv weights, zero bias
 INIT_STD = 0.02
@@ -156,7 +158,13 @@ class TorchBatchNorm(nn.BatchNorm1d):
     running-stat rules as ``nn.BatchNorm1d`` (biased variance to normalise,
     Bessel-corrected variance stored; momentum 0.1 here is the JAX module's
     0.9). Statistics and the normalisation run in fp32 whatever the compute
-    dtype; the result is cast to ``dtype``."""
+    dtype; the result is cast to ``dtype``.
+
+    Under data parallelism (``parallel/context.py``) the train-mode
+    statistics are the GLOBAL batch's, as the JAX step's are by construction
+    (``_global_batch_norm``); ``nn.SyncBatchNorm`` is not used, since it
+    refuses CPU tensors and gathers with ``all_gather``, which gloo lacks for
+    CUDA tensors."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -166,12 +174,39 @@ class TorchBatchNorm(nn.BatchNorm1d):
         xf = x.to(torch.float32)
         if self.training:
             flat = xf.reshape(-1, xf.shape[-1])
-            y = F.batch_norm(flat, self.running_mean, self.running_var, self.weight,
-                             self.bias, True, self.momentum, self.eps).reshape(xf.shape)
+            ctx = active()
+            if ctx is not None:
+                y = self._global_batch_norm(flat, ctx).reshape(xf.shape)
+            else:
+                y = F.batch_norm(flat, self.running_mean, self.running_var, self.weight,
+                                 self.bias, True, self.momentum, self.eps).reshape(xf.shape)
         else:
             y = (xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
             y = y * self.weight + self.bias
         return y.to(self.compute_dtype)
+
+    def _global_batch_norm(self, flat: torch.Tensor, ctx) -> torch.Tensor:
+        """Train-mode batch norm over every rank's rows: the mean from the
+        all-reduced sum and count, then the biased variance from the
+        all-reduced sum of squared deviations (two passes, as the
+        single-process kernel computes it). Both reductions are
+        differentiable all-reduces, so the backward sums every rank's share
+        of the statistics' gradient. The running variance's Bessel factor
+        uses the global count."""
+        ch = flat.shape[-1]
+        count = torch.full((1,), float(flat.shape[0]), device=flat.device)
+        sums = all_reduce_sum(torch.cat([flat.sum(0), count]), ctx.group)
+        n = sums[ch]
+        mean = sums[:ch] / n
+        centered = flat - mean
+        var = all_reduce_sum((centered * centered).sum(0), ctx.group) / n
+        y = centered * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * (n / (n - 1.0)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
@@ -181,7 +216,8 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, device=x.device, generator=generator) < keep
+    mask = draw_rows(lambda s: torch.rand(s, device=x.device, generator=generator),
+                     shape) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -9,16 +9,21 @@ Port of ``gm3d_tpu/serve/runner.py``. The artifact has a STATIC batch;
 
 Padding clouds are all-zeros; their outputs are discarded, never returned.
 A segmentation artifact also takes each cloud's object category
-(``cls_label``), padded and chunked in lockstep with the points.
+(``cls_label``), padded and chunked in lockstep with the points. With
+``devices``, the program is loaded once a device and the chunks go to them
+round-robin, all enqueued before any is read back.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from gm3d_tpu_torch.serve.export import load_artifact
+from gm3d_tpu_torch.utils.device import resolve_device
 
 
 def check_points(points: np.ndarray, npoints: int):
@@ -79,22 +84,23 @@ class ServingModel:
     """Loads a ``.gm3dx`` artifact and serves numpy in / numpy out.
 
     ``device``: where the model runs (default ``"cuda"``; raises without
-    one). ``devices``: the fan-out list of the JAX runner; one device is
-    accepted (and takes the place of ``device``), more raise ``ValueError``
-    until multi-GPU fan-out is ported."""
+    one). ``devices``: a sequence of devices to fan the chunks out over
+    (round-robin, as the JAX runner does; a device may repeat, which gives
+    it two replicas); ``None`` serves on ``device`` alone."""
 
     def __init__(self, path: str, device="cuda", devices: Optional[Sequence] = None):
-        if devices:
-            if len(devices) > 1:
-                raise ValueError(
-                    f"fan-out over {len(devices)} devices is not ported yet: "
-                    "ServingModel takes one device")
-            device = devices[0]
         self.path = path
-        self._fn, self.manifest = load_artifact(path, device=device)
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        loaded = [load_artifact(path, device=d) for d in self.devices]
+        self._fns = [fn for fn, _ in loaded]
+        self.manifest = loaded[0][1]
+        # a cursor that persists over calls: a one-chunk request (and every
+        # batcher-coalesced batch) would otherwise always take devices[0];
+        # ``itertools.count`` advances in one C call, safe across request threads
+        self._rr = itertools.count()
         self.batch, self.npoints, _ = self.manifest["input_shape"]
-        self.device_call = self._fn.device_call
-        self.program = self._fn.program  # the loaded torch.export program
+        self.device_call = self._fns[0].device_call
+        self.program = self._fns[0].program  # the loaded torch.export program
         # at most one extra per-cloud input: the seg model's cls_label
         extra = self.manifest.get("extra_inputs", [])
         if len(extra) > 1:
@@ -128,7 +134,10 @@ class ServingModel:
 
     @property
     def info(self) -> Dict[str, Any]:
-        return dict(self.manifest)
+        info = dict(self.manifest)
+        if len(self.devices) > 1:
+            info["serving_devices"] = len(self.devices)
+        return info
 
     def predict(self, points: np.ndarray, cls_label=None) -> np.ndarray:
         """points (B, N, 3) or (N, 3) -> outputs (B, ...) / (...).
@@ -148,6 +157,12 @@ class ServingModel:
             if labels is not None:
                 lab = labels[start:start + self.batch]
                 extra = (np.concatenate([lab, np.zeros(self.batch - n, lab.dtype)]),)
-            outs.append(self._fn(chunk, *extra)[:n])
-        out = np.concatenate(outs, axis=0)
+            i = next(self._rr) % len(self._fns)
+            dev = self.devices[i]
+            args = [torch.from_numpy(np.ascontiguousarray(
+                chunk, dtype=self.manifest["input_dtype"])).to(dev)]
+            args += [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in extra]
+            # enqueued on its device; read back once every chunk is in flight
+            outs.append(self._fns[i].device_call(*args)[:n])
+        out = np.concatenate([o.cpu().numpy() for o in outs], axis=0)
         return out[0] if single else out

@@ -1,7 +1,8 @@
 """Stdlib HTTP micro-server over a :class:`ServingModel`.
 
 Port of ``gm3d_tpu/serve/server.py``. Zero extra dependencies
-(``http.server``), threaded, one process and one device.
+(``http.server``), threaded, one process; one device, or the local GPUs
+with ``num_devices`` (the chunks of a request round-robin over them).
 
 Endpoints:
   GET  /health    -> {"status": "ok"}
@@ -27,13 +28,17 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from gm3d_tpu_torch.serve.batcher import DynamicBatcher
 from gm3d_tpu_torch.serve.runner import ServingModel
 from gm3d_tpu_torch.train.segmentation import category_restricted_argmax
+from gm3d_tpu_torch.utils.device import resolve_device
 
 
 def _seg_labels(logits: np.ndarray, cls_label, manifest: dict) -> np.ndarray:
@@ -138,6 +143,28 @@ class _Server(ThreadingHTTPServer):
         super().server_close()
 
 
+def serving_devices(num_devices: int, device="cuda") -> Optional[List[torch.device]]:
+    """The fan-out list of ``make_server``: None for one device, else
+    ``cuda:0 .. cuda:n-1`` (``-1``: every visible GPU) or ``n`` times the CPU."""
+    if num_devices < -1 or num_devices == 0:
+        raise ValueError(f"num_devices must be -1 (all local devices) or >= 1, "
+                         f"got {num_devices}")
+    if num_devices == 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        if num_devices == -1:
+            raise ValueError("num_devices -1 (all local GPUs) needs a CUDA device")
+        return [dev] * num_devices
+    local = torch.cuda.device_count()
+    if num_devices > local:
+        logging.getLogger("gm3d.serve").warning(
+            "requested %d serving devices but only %d are local; using %d",
+            num_devices, local, local)
+    n = local if num_devices == -1 else min(num_devices, local)
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
                 batch_wait_ms: float = 3.0,
                 dynamic_batching: bool = True,
@@ -151,13 +178,12 @@ def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
     padded batch.
 
     ``device``: where the model runs; ``"cuda"`` raises without a GPU.
-    ``num_devices``: only 1 for now; fan-out over several GPUs is not ported
-    yet and raises ``ValueError``."""
-    if num_devices != 1:
-        raise ValueError(
-            f"num_devices must be 1 (multi-device fan-out is not ported "
-            f"yet), got {num_devices}")
-    model = ServingModel(artifact_path, device=device)
+    ``num_devices``: fan request chunks out over this many local GPUs
+    (``-1``: all of them; more than there are: all, with a warning), one
+    loaded program each (``ServingModel(devices=...)``); on the CPU, this
+    many replicas. 1 keeps the single-device path."""
+    model = ServingModel(artifact_path, device=device,
+                         devices=serving_devices(num_devices, device))
     backend = DynamicBatcher(model, batch_wait_ms) if dynamic_batching else model
     server = _Server((host, port), _make_handler(model, backend))
     server.batcher = backend if isinstance(backend, DynamicBatcher) else None

@@ -26,6 +26,8 @@ from torch import nn
 
 from gm3d_tpu_torch.data.transforms import scale_and_translate
 from gm3d_tpu_torch.ops.fps import fps
+from gm3d_tpu_torch.parallel.context import draw_rows
+from gm3d_tpu_torch.parallel.mesh import mean_over_ranks, reduce_gradients
 from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.optim import global_norm
 from gm3d_tpu_torch.train.state import TrainState
@@ -48,8 +50,9 @@ def point_all_for(npoints: int) -> int:
     return table[npoints]
 
 
-def _uniform(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device)
+def _uniform(generator: Optional[torch.Generator], shape, device, dim: int = 0) -> torch.Tensor:
+    """Uniform draws whose axis ``dim`` is the batch's (``draw_rows``)."""
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape, dim)
 
 
 def subsample(generator: Optional[torch.Generator], pts: torch.Tensor, npoints: int,
@@ -131,10 +134,12 @@ def make_finetune_train_step(model: nn.Module, optimizer, npoints: int = 1024,
         loss, acc = losses.classification_loss(logits, labels, smoothing)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer, params)
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "acc": acc, "grad_norm": grad_norm}
+        return state, mean_over_ranks({"loss": loss.detach(), "acc": acc,
+                                       "grad_norm": grad_norm})
 
     return step
 
@@ -192,10 +197,10 @@ def vote_draws(generator: Optional[torch.Generator], times: int, batch: int,
     """One voting batch's draws: the subsample's noise (times, batch,
     points) and the augmentation's scale and shift (times, batch, 1, 3)."""
     dev = generator.device if generator is not None else None
-    return {"noise": _uniform(generator, (times, batch, num_points), dev),
-            "scale": _uniform(generator, (times, batch, 1, 3), dev)
+    return {"noise": _uniform(generator, (times, batch, num_points), dev, dim=1),
+            "scale": _uniform(generator, (times, batch, 1, 3), dev, dim=1)
             * (3.0 / 2.0 - 2.0 / 3.0) + 2.0 / 3.0,
-            "shift": _uniform(generator, (times, batch, 1, 3), dev) * 0.4 - 0.2}
+            "shift": _uniform(generator, (times, batch, 1, 3), dev, dim=1) * 0.4 - 0.2}
 
 
 def make_vote_eval_step(model: nn.Module, npoints: int = 1024, times: int = 10,

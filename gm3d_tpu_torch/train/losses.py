@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from gm3d_tpu_torch.models.pointmae import take_groups
 from gm3d_tpu_torch.ops.chamfer import chamfer_group, chamfer_l1, chamfer_l2
 from gm3d_tpu_torch.ops.emd import emd_loss
+from gm3d_tpu_torch.parallel.mesh import global_count
 
 
 def pointmae_reconstruction_loss(rebuild: torch.Tensor, gt: torch.Tensor,
@@ -100,7 +101,8 @@ def relative_learning_loss(loss_pred: torch.Tensor, loss_target: torch.Tensor) -
     neg = (target[:, :, None] < target[:, None, :]).to(torch.float32)
     sig = torch.sigmoid(pred[:, :, None] - pred[:, None, :])
     loss = -pos * torch.log(sig + 1e-6) - neg * torch.log(1.0 - sig + 1e-6)
-    valid = (pos + neg).sum().clamp_min(1.0)
+    # the pairs of the whole batch, under data parallelism too
+    valid = global_count((pos + neg).sum())
     return loss.sum() / valid
 
 

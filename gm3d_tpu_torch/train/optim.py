@@ -32,6 +32,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from gm3d_tpu_torch.parallel.mesh import average_gradients
+
 # the port's name of the JAX student's ``coord_head``
 GM3D_COORD_HEAD = "increase_dim_just_network_without_feature"
 
@@ -100,7 +102,9 @@ class MultiSteps:
     The learning rate is ``inner``'s: the caller sets it from the count of
     updates, ``step // accum_steps``, which is where optax reads a schedule
     under ``MultiSteps``. ``state_dict`` holds the accumulation and the count,
-    so that a checkpoint saved inside a window resumes exactly."""
+    so that a checkpoint saved inside a window resumes exactly. Under data
+    parallelism each rank accumulates its rows' gradients and the window's
+    mean is averaged over ranks once, before ``inner`` steps."""
 
     def __init__(self, inner, accum_steps: int, scale: float = 1.0):
         if accum_steps < 1:
@@ -135,6 +139,8 @@ class MultiSteps:
                 torch._foreach_mul_(self.acc, self.scale)
             for p, a in zip(self._params, self.acc):
                 p.grad = a
+            # data parallelism reduces the window's mean once, here
+            average_gradients(self._params)
             self.inner.step()
             # the window's gradient is spent: no later backward may add into it
             for p in self._params:

@@ -55,6 +55,8 @@ from gm3d_tpu_torch.models.pointmae import PointMAE, take_groups
 from gm3d_tpu_torch.ops.chamfer import chamfer_group
 from gm3d_tpu_torch.ops.group import Grouped, group_points
 from gm3d_tpu_torch.ops.patch_embed import fused_patch_embed, params_from_module
+from gm3d_tpu_torch.parallel.context import draw_rows
+from gm3d_tpu_torch.parallel.mesh import global_count, mean_over_ranks, reduce_gradients
 from gm3d_tpu_torch.serve.quantize import quantized_dense
 from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.optim import global_norm
@@ -115,10 +117,11 @@ def make_pointmae_train_step(model: PointMAE, optimizer: torch.optim.Optimizer,
         loss = losses.pointmae_reconstruction_loss(outs["rebuild"], outs["gt"], loss_type)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer, params)
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, mean_over_ranks({"loss": loss.detach(), "grad_norm": grad_norm})
 
     step.num_mask = num_mask
     return step
@@ -388,6 +391,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             total.backward()
             if remat is not None:
                 remat.restore()
+            reduce_gradients(optimizer, trainable)
             mark("backward")
 
         # the norm over every trainable parameter, a missing gradient as zero
@@ -408,7 +412,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             "grad_norm": grad_norm,
         }
         step.last_mask = mask
-        return state, metrics
+        return state, mean_over_ranks(metrics)
 
     step.num_mask = num_mask
     step.last_mask = None
@@ -446,7 +450,8 @@ def m2ae_losses(model: PointM2AE, outs: dict) -> Tuple[torch.Tensor, torch.Tenso
     per_fine = chamfer_group(outs["rebuild"].to(torch.float32),
                              outs["gt"].to(torch.float32))  # (B, G_0)
     w = (~outs["fine_vis"]).to(torch.float32)
-    loss = (per_fine * w).sum() / w.sum().clamp_min(1.0)
+    # the masked groups of the whole batch, under data parallelism too
+    loss = (per_fine * w).sum() / global_count(w.sum())
     coarse = torch.zeros((w.shape[0], model.num_groups[-1]), dtype=torch.float32,
                          device=w.device)
     index = outs["fine_to_coarse"].long()
@@ -498,10 +503,11 @@ def make_m2ae_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0.8,
         loss, _ = m2ae_losses(model, outs)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer, params)
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         _step_all(optimizer, params)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, mean_over_ranks({"loss": loss.detach(), "grad_norm": grad_norm})
 
     step.num_mask = num_mask
     return step
@@ -582,14 +588,16 @@ def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0
             mark("losses")
             optimizer.zero_grad(set_to_none=True)
             total.backward()
+            reduce_gradients(optimizer, params)
             mark("backward")
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         _step_all(optimizer, params)
         ema_update(state.ema, model, scalars["ema_decay"])
         state.step += 1
         mark("optimizer_ema")
-        return state, {"loss": total.detach(), "loss_chfr": loss.detach(),
-                       "loss_learn": loss_learn.detach(), "grad_norm": grad_norm}
+        return state, mean_over_ranks({"loss": total.detach(), "loss_chfr": loss.detach(),
+                                       "loss_learn": loss_learn.detach(),
+                                       "grad_norm": grad_norm})
 
     step.num_mask = num_mask
     return step
@@ -601,8 +609,8 @@ def probe_draws(generator: Optional[torch.Generator],
     classifier head's two dropouts (``ClsHead``: 256 wide, rate 0.5), each
     unit kept with probability 0.5."""
     dev = generator.device if generator is not None else None
-    return {"dropout": tuple(torch.rand((batch, 256), generator=generator, device=dev) < 0.5
-                             for _ in range(2))}
+    return {"dropout": tuple(draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                                       (batch, 256)) < 0.5 for _ in range(2))}
 
 
 def make_probe_step(feat_model: nn.Module, classifier: nn.Module,
@@ -642,8 +650,9 @@ def make_probe_step(feat_model: nn.Module, classifier: nn.Module,
         loss, acc = losses.classification_loss(logits, labels)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer, params)
         optimizer.step()
         probe_state.step += 1
-        return probe_state, {"loss_cls": loss.detach(), "acc_cls": acc}
+        return probe_state, mean_over_ranks({"loss_cls": loss.detach(), "acc_cls": acc})
 
     return step

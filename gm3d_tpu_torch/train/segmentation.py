@@ -31,6 +31,8 @@ from torch import nn
 from gm3d_tpu_torch.data.transforms import scale_and_translate
 from gm3d_tpu_torch.eval.metrics import part_miou
 from gm3d_tpu_torch.models.segmentation import HEAD_WIDTH
+from gm3d_tpu_torch.parallel.context import draw_rows
+from gm3d_tpu_torch.parallel.mesh import mean_over_ranks, reduce_gradients, run_eval_batch
 from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.finetune import _eval_mode, make_finetune_multi_step
 from gm3d_tpu_torch.train.state import TrainState
@@ -49,7 +51,7 @@ def seg_draws(generator: Optional[torch.Generator], model: nn.Module, batch: int
     dev = generator.device if generator is not None else None
 
     def uniform(shape):
-        return torch.rand(shape, generator=generator, device=dev)
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), shape)
 
     return {"scale": uniform((batch, 1, 3)) * (3.0 / 2.0 - 2.0 / 3.0) + 2.0 / 3.0,
             "shift": uniform((batch, 1, 3)) * 0.4 - 0.2,
@@ -86,9 +88,10 @@ def make_seg_train_step(model: nn.Module, optimizer, augment: bool = True,
         loss, acc = losses.classification_loss(logits, seg_label)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer, [p for p in model.parameters() if p.requires_grad])
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "acc": acc}
+        return state, mean_over_ranks({"loss": loss.detach(), "acc": acc})
 
     return step
 
@@ -140,8 +143,9 @@ def run_seg_val(eval_step: Callable, loader, seg_classes, cls_names,
 
     flight = DeferredMetrics(drain, depth=depth)
     for pts, cls_label, seg in loader:
-        flight.push(eval_step(torch.as_tensor(pts), torch.as_tensor(cls_label)),
-                    np.asarray(cls_label), np.asarray(seg))
+        # under data parallelism each rank computes its rows (gathered)
+        logits = run_eval_batch(eval_step, torch.as_tensor(pts), torch.as_tensor(cls_label))
+        flight.push(logits, np.asarray(cls_label), np.asarray(seg))
     flight.flush()
     return part_miou(np.concatenate(preds), np.concatenate(targets),
                      np.concatenate(clss), seg_classes, cls_names)

@@ -1,8 +1,10 @@
 """Named loggers, JSON-lines epoch records and TensorBoard scalars.
 
 Port of ``gm3d_tpu/utils/logging.py``: ``get_logger``, ``print_log``,
-``ScalarWriter`` and ``JsonlLogger``. The port runs one process, so the
-process index of the JAX module is always 0 here and every writer is on."""
+``ScalarWriter`` and ``JsonlLogger``, rank-aware as the JAX module is: under
+data parallelism (``parallel/``) only rank 0 writes the log file, the
+TensorBoard scalars and the JSON-lines records, and the other ranks' loggers
+surface errors only."""
 
 from __future__ import annotations
 
@@ -12,21 +14,29 @@ import os
 from typing import Optional
 
 
+def _is_main() -> bool:
+    from gm3d_tpu_torch.parallel.multihost import is_main_process
+
+    return is_main_process()
+
+
 def get_logger(name: str = "gm3d", log_file: Optional[str] = None,
                level: int = logging.INFO) -> logging.Logger:
     logger = logging.getLogger(name)
     if getattr(logger, "_gm3d_configured", False):
         return logger
+    main = _is_main()
     fmt = logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if log_file:
+    if log_file and main:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
         fh = logging.FileHandler(log_file)
         fh.setFormatter(fmt)
         logger.addHandler(fh)
-    logger.setLevel(level)
+    # the other ranks only surface errors (the reference's behaviour)
+    logger.setLevel(level if main else logging.ERROR)
     logger._gm3d_configured = True  # type: ignore[attr-defined]
     return logger
 
@@ -34,7 +44,8 @@ def get_logger(name: str = "gm3d", log_file: Optional[str] = None,
 def print_log(msg: str, logger: Optional[logging.Logger | str] = None,
               level: int = logging.INFO) -> None:
     if logger is None:
-        print(msg)
+        if _is_main():
+            print(msg)
     elif isinstance(logger, str):
         get_logger(logger).log(level, msg)
     else:
@@ -48,7 +59,7 @@ class ScalarWriter:
 
     def __init__(self, log_dir: Optional[str]):
         self._writer = None
-        if log_dir:
+        if log_dir and _is_main():
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -73,8 +84,12 @@ class JsonlLogger:
 
     def __init__(self, path: str):
         self.path = path
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self.enabled = _is_main()
+        if self.enabled:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
 
     def write(self, record: dict) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")

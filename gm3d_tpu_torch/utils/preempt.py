@@ -9,6 +9,10 @@ position agree, writes the rolling checkpoint and the loader sidecar (the
 machinery of ``--save_steps``) and exits 0. ``--resume`` then continues from
 the exact next batch. Exit code 0 tells a graceful stop apart from the
 NaN-loss exit (1) for an orchestrator that restarts on any exit.
+
+Under data parallelism the ranks agree on the flag at each poll (a signal on
+any rank stops every rank at the same step boundary), so that no rank waits
+in a collective for one that has left; rank 0 writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -53,10 +57,27 @@ class PreemptionGuard:
                 f"received signal {signum}: will checkpoint at the next step "
                 "boundary and exit (rerun with --resume to continue)")
 
+    def _agreed(self) -> bool:
+        """This rank's flag, or any rank's under data parallelism (a
+        maximum over the context's control group: host tensors, no device
+        work)."""
+        from gm3d_tpu_torch.parallel.context import get_context
+
+        ctx = get_context()
+        if ctx is None:
+            return self.triggered
+        import torch
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self.triggered)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=ctx.control_group)
+        self.triggered = bool(flag.item())
+        return self.triggered
+
     def exit_if_triggered(self, save_fn) -> None:
         """If a signal arrived, run ``save_fn()`` (checkpoint and loader
         sidecar), restore the handlers and exit 0."""
-        if not self.triggered:
+        if not self._agreed():
             return
         save_fn()
         if self._logger is not None:

@@ -38,6 +38,7 @@ import pytest
 import torch
 import yaml
 
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from gm3d_tpu.ckpt import save_checkpoint as jsave_checkpoint
 from gm3d_tpu.models import PointM2AEClassifier as JM2AEClassifier
 from gm3d_tpu.models import PointMAE as JPointMAE

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from cli_harness import _reset_gm3d_loggers
 from test_torch_port_pretrain_step import (
     SMALL,

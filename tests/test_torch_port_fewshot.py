@@ -233,7 +233,7 @@ def test_the_two_fewshot_clis_agree(source, monkeypatch, tmp_path):
 
 def test_the_fewshot_cli_takes_both_fold_flags_and_refuses_what_is_not_ported(tmp_path):
     """``--no-parallel_folds`` gives the same folds (they run in turn either
-    way); several devices raise, naming their item. (A Point-M2AE config
+    way); ``--num_devices`` other than the world size raises, naming ``torchrun``. (A Point-M2AE config
     trains the hierarchical classifier: ``tests/test_torch_port_m2ae_cli.py``.)"""
     config = _config(tmp_path)
     flags = ["--config", config, "--synthetic", "--way", "2", "--shot", "2", "--folds", "2",
@@ -241,5 +241,5 @@ def test_the_fewshot_cli_takes_both_fold_flags_and_refuses_what_is_not_ported(tm
     runs = [cli.main([*flags, *extra, "--output_dir", str(tmp_path / name)])[0]
             for name, extra in (("par", []), ("seq", ["--no-parallel_folds"]))]
     assert runs[0] == runs[1] and len(runs[0]["accs"]) == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main([*flags, "--num_devices", "2", "--output_dir", str(tmp_path / "x")])

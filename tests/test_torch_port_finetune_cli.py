@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from cli_harness import _reset_gm3d_loggers
 
 import gm3d_tpu.cli.finetune as jcli

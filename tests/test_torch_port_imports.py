@@ -85,6 +85,15 @@ EVAL_QUANT_MODULES = {
 CLIP_EMD_MODULES = {"gm3d_tpu_torch.models.clip", "gm3d_tpu_torch.ops.emd"}
 
 
+# data parallelism over several GPUs and the C++ loader: the last modules
+PARALLEL_NATIVE_MODULES = {
+    "gm3d_tpu_torch.parallel", "gm3d_tpu_torch.parallel.context",
+    "gm3d_tpu_torch.parallel.mesh", "gm3d_tpu_torch.parallel.multihost",
+    "gm3d_tpu_torch.native", "gm3d_tpu_torch.native.native_loader",
+    "gm3d_tpu_torch.scripts.make_disk_datasets",
+}
+
+
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -96,11 +105,26 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = _run(_IMPORT_ALL, PATH="", CUDA_HOME="", CUDA_PATH="")
     assert res.returncode == 0, res.stderr
     lines = dict(ln.split(" ", 1) for ln in res.stdout.strip().splitlines())
-    assert int(lines["IMPORTED"]) >= 63
+    assert int(lines["IMPORTED"]) >= 91
     assert (PRETRAIN_CLI_MODULES | CKPT_MODULES | PROBE_MODULES | SEG_FEWSHOT_MODULES
-            | M2AE_MODULES | EVAL_QUANT_MODULES | CLIP_EMD_MODULES
+            | M2AE_MODULES | EVAL_QUANT_MODULES | CLIP_EMD_MODULES | PARALLEL_NATIVE_MODULES
             <= set(lines["NAMES"].split()))
     assert lines["FOREIGN"] == "[]"
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """Each of the JAX package's 64 modules (``__init__.py`` aside) has the
+    port's module at the same path."""
+    def modules(root):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+                if p.name != "__init__.py"}
+
+    jax_side = modules(REPO / "gm3d_tpu")
+    assert len(jax_side) == 64
+    assert not sorted(jax_side - modules(PKG))
+    # the C++ loader's source ships with the port, outside csrc/ (nvcc's)
+    assert 'extern "C" {' in (PKG / "native" / "loader.cpp").read_text()
+    assert not list((PKG / "native").glob("*.so"))
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
@@ -380,3 +404,30 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
                          text=True, cwd=str(REPO), timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_parallel_and_serving_fan_out_default_to_cuda_and_say_so(artifact, monkeypatch):
+    """The data-parallel set-up and the serving fan-out take the GPU unless
+    the CPU is asked for: a rank of ``torchrun`` without a card raises before
+    it joins any group."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device exists")
+    from gm3d_tpu_torch.cli.common import base_parser, setup_mesh
+    from gm3d_tpu_torch.parallel import get_context, init_distributed
+    from gm3d_tpu_torch.parallel.multihost import rank_device
+    from gm3d_tpu_torch.serve.server import make_server, serving_devices
+
+    _, art = artifact
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    for entry in (lambda: init_distributed(),
+                  lambda: setup_mesh(base_parser("x").parse_args(["--config", "c.yaml"])),
+                  lambda: rank_device("cuda", 0),
+                  lambda: make_server(art, num_devices=2),
+                  lambda: serving_devices(-1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert get_context() is None
+    assert rank_device("cpu", 1).type == "cpu"
+    assert serving_devices(2, "cpu") == [torch.device("cpu")] * 2

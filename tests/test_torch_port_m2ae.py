@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from gm3d_tpu.ckpt.transfer import overlay_pretrained as joverlay
 from gm3d_tpu.models import PointM2AE as JPointM2AE
 from gm3d_tpu.models import PointM2AEClassifier as JClassifier

@@ -345,11 +345,33 @@ def test_a_probe_at_its_iteration_cap_warns_and_the_run_goes_on(monkeypatch, tmp
 
 
 @pytest.mark.parametrize("flags", NOT_PORTED, ids=lambda f: " ".join(f))
-def test_flags_not_ported_yet_raise_and_name_their_item(flags, tmp_path):
+def test_flags_not_ported_yet_raise_and_name_their_item(flags, monkeypatch, tmp_path):
+    """The two flags that raised before their items were ported now refuse
+    only what they cannot do, before anything is trained or written:
+    ``--num_devices`` other than the world size names ``torchrun`` (data
+    parallelism: ``tests/test_torch_port_parallel.py``); ``--native_loader``
+    over an on-disk set whose C++ loader does not build raises with the
+    compiler's output and does not fall back to the Python loader (the loader:
+    ``tests/test_torch_port_native_loader.py``)."""
     _reset_gm3d_loggers()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d"):
-        cli.main(["--config", "configs/pointmae/config.yaml", "--synthetic", "--device", "cpu",
-                  "--output_dir", str(tmp_path), *flags])
+    config = "configs/pointmae/config.yaml"
+    if flags == ["--native_loader"]:
+        from gm3d_tpu_torch.native import native_loader
+        from gm3d_tpu_torch.scripts import make_disk_datasets as disk
+
+        shapenet = disk.write_shapenet55(str(tmp_path / "shapenet"), 4, 1, 64, seed=0)
+        config = disk.pretrain_config(str(tmp_path / "disk.yaml"), config, shapenet,
+                                      str(tmp_path / "no-modelnet"))
+        monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(native_loader, "_lib", None)
+        monkeypatch.setenv("CXX", "false")
+        raised = pytest.raises(RuntimeError, match="building the native loader")
+    else:
+        raised = pytest.raises(ValueError, match="torchrun")
+    data = [] if flags == ["--native_loader"] else ["--synthetic"]
+    with raised:
+        cli.main(["--config", config, *data, "--device", "cpu", "--output_dir", str(tmp_path),
+                  *flags])
     assert not (tmp_path / "log.txt").exists()
 
 

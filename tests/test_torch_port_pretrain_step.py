@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from gm3d_tpu.models import GM3DStudent as JGM3DStudent
 from gm3d_tpu.models import PointMAE as JPointMAE
 from gm3d_tpu.train.optim import build_gm3d_shared_optimizer as jbuild_optimizer

@@ -24,6 +24,7 @@ import pytest
 import torch
 import yaml
 
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from gm3d_tpu.models import PointTransformer as JPointTransformer
 from gm3d_tpu.serve import export as jexport
 from gm3d_tpu.serve import quantize as jq

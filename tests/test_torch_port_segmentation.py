@@ -44,6 +44,7 @@ import optax
 import pytest
 import torch
 import yaml
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from cli_harness import _reset_gm3d_loggers
 
 import gm3d_tpu.cli.finetune_seg as jcli
@@ -597,8 +598,11 @@ def test_the_two_seg_clis_agree(monkeypatch, tmp_path):
 
 def test_the_seg_cli_resumes_and_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """Two epochs in one run, or one and then ``--resume`` for the second,
-    end with the same weights (the draws depend on the step only); the
-    C++ loader and several devices raise, naming their items."""
+    end with the same weights (the draws depend on the step only);
+    ``--native_loader`` on ``--synthetic`` clouds trains through the Python
+    loader, as the JAX CLI does (the C++ loader reads on-disk ``.npy`` caches:
+    ``tests/test_torch_port_native_loader.py``); ``--num_devices`` other than
+    the world size raises, naming ``torchrun``."""
     config = _seg_config(tmp_path, lr=1e-3)
     flags = ["--config", config, "--synthetic", "--synthetic_samples", "8", "--batch_size",
              "4", "--steps_per_dispatch", "1", "--num_workers", "0", "--device", "cpu",
@@ -619,7 +623,7 @@ def test_the_seg_cli_resumes_and_refuses_what_is_not_ported(monkeypatch, tmp_pat
     whole = cli.main([*flags, "--epochs", "2", "--output_dir", str(tmp_path / "whole")])
     step_keyed(0)
     _reset_gm3d_loggers()
-    cli.main([*flags, "--epochs", "1", "--output_dir", str(tmp_path / "split")])
+    first = cli.main([*flags, "--epochs", "1", "--output_dir", str(tmp_path / "split")])
     step_keyed(2)
     _reset_gm3d_loggers()
     resumed = cli.main([*flags, "--epochs", "2", "--resume",
@@ -631,9 +635,14 @@ def test_the_seg_cli_resumes_and_refuses_what_is_not_ported(monkeypatch, tmp_pat
     assert a["step"] == b["step"] == 4
     for key, value in a["model"].items():
         assert torch.equal(value, b["model"][key]), key
-    for extra, item in ((["--native_loader"], "item 10"), (["--num_devices", "2"], "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main([*flags, *extra, "--output_dir", str(tmp_path / "refused")])
+    step_keyed(0)
+    _reset_gm3d_loggers()
+    native = cli.main([*flags, "--native_loader", "--epochs", "1",
+                       "--output_dir", str(tmp_path / "native")])
+    for key in ("loss", "acc", "instance_miou", "class_miou"):
+        assert native[0][key] == first[0][key], key
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.main([*flags, "--num_devices", "2", "--output_dir", str(tmp_path / "refused")])
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import pytest
 import torch
 import yaml
 
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from gm3d_tpu.models import GM3DStudent as JGM3DStudent
 from gm3d_tpu.models import PointMAE as JPointMAE
 from gm3d_tpu.models import PointTransformer as JPointTransformer
@@ -206,11 +207,14 @@ def test_export_guards(classifier_artifact, tmp_path):
     with pytest.raises(FileNotFoundError):
         export_model.main(["--config", cfg, "--ckpt", str(tmp_path / "missing.pth"),
                            "--device", "cpu", "--out", str(tmp_path / "x.gm3dx")])
-    with pytest.raises(ValueError, match="not ported"):
-        ServingModel(art, devices=["cpu", "cpu"])
+    # fan-out: two replicas answer what one does, chunk for chunk
+    pts = np.random.default_rng(5).standard_normal((2 * BATCH + 1, NPOINTS, 3)).astype(np.float32)
+    fanned = ServingModel(art, devices=["cpu", "cpu"])
+    assert fanned.info["serving_devices"] == 2
+    np.testing.assert_array_equal(fanned.predict(pts), ServingModel(art, device="cpu").predict(pts))
     assert ServingModel(art, devices=["cpu"]).batch == BATCH
     with pytest.raises(ValueError, match="num_devices"):
-        make_server(art, num_devices=2, device="cpu")
+        make_server(art, num_devices=0, device="cpu")
     # a manifest of a mode this package does not serve is refused when the
     # artifact is loaded (segmentation is served since its slice came in)
     other = tmp_path / "other.gm3dx"
@@ -300,10 +304,11 @@ def test_http_bad_body_is_400(http, body, ctype):
 def test_http_device_failure_is_500(classifier_artifact):
     server = make_server(classifier_artifact[0], port=0, dynamic_batching=False, device="cpu")
 
-    def boom(points):
+    def boom(*args):
         raise RuntimeError("device lost")
 
-    server.serving_model._fn = boom
+    for fn in server.serving_model._fns:  # the loaded program of each serving device
+        fn.device_call = boom
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:

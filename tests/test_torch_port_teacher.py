@@ -29,6 +29,7 @@ import optax
 import pytest
 import torch
 import yaml
+from _torch_threads import torch_at_one_thread  # noqa: F401
 from cli_harness import _reset_gm3d_loggers
 
 import gm3d_tpu.cli.pretrain as jcli
