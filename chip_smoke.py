@@ -116,11 +116,20 @@ Phases, each printing one JSON line when it ends:
               equal to the eval step's category-restricted arg-max, logits
               within ``TOL_SERVE``; another ``--input_points`` refused
   fewshot     the few-shot CLI at ``fewshot.yaml``'s full width, 5-way 10-shot,
-              two folds of two epochs on synthetic episodes from the same
-              pretrain checkpoint: per-fold accuracies, mean and std in
-              ``log.txt``, seconds a fold, launches (FPS 1, KNN 1 a step or
-              an evaluation batch), the finetune step's ms at the episode
-              batch
+              the published ten folds of two epochs on synthetic episodes from
+              the same pretrain checkpoint, its folds trained together (the
+              default) and then one after another: per-fold accuracies, mean
+              and std in ``log.txt``, each fold's accuracy within one test cloud
+              across the two, wall seconds, launches (FPS 1, KNN 1 a batched
+              step or evaluation batch for all ten folds, ten times that one
+              after another); the same for ``fewshot-Point-M2AE.yaml`` (B 40,
+              one epoch, weights from each fold's seed; FPS 3, KNN 3); then for
+              each, the fold-batched step against each fold's own step from the
+              same weights and generators (losses of ``FS_STEPS`` steps within
+              ``TOL_FS_LOSS``), the batched step's and eval batch's ms beside
+              ten times the per-fold ones, the host ms of the folds' draws, the
+              batched step's peak memory, the device's busy share in a traced
+              batched step and in a traced per-fold step
   m2ae        the Point-M2AE family at ``config_Point_M2AE.yaml``'s full width (B 128 x
               2,048 points, 512 / 256 / 64 groups): FPS and KNN at every shape of the
               hierarchy and its k = 1 maps on the step's inputs, index-equal to their
@@ -2218,14 +2227,22 @@ SEG_LAUNCHES_PER_STEP = {"fps": 1, "knn": 2, "patch_embed": 0, "attention_fwd": 
                          "attention_bwd": 0}
 SEG_RECORD_KEYS = {"loss", "acc", "epoch", "time", "instance_miou", "class_miou"}
 # the few-shot path: configs/pointmae/fewshot.yaml at full width (PointTransformer,
-# 384 wide, 12 blocks, 64 groups of 32, 1,024 points, B 32), 5-way 10-shot
+# 384 wide, 12 blocks, 64 groups of 32, 1,024 points, B 32), 5-way 10-shot, the published
+# ten folds, trained together (the default --parallel_folds) and one after another; and
+# configs/m2ae/fewshot-Point-M2AE.yaml (PointM2AEClassifier, B 40) the same way
 FS_CONFIG = os.path.join(ROOT, "configs", "pointmae", "fewshot.yaml")
-FS_WAY, FS_SHOT, FS_FOLDS, FS_EPOCHS, FS_BATCH = 5, 10, 2, 2, 32
+FS_M2AE_CONFIG = os.path.join(ROOT, "configs", "m2ae", "fewshot-Point-M2AE.yaml")
+FS_WAY, FS_SHOT, FS_FOLDS, FS_EPOCHS, FS_BATCH, FS_M2AE_BATCH = 5, 10, 10, 2, 32, 40
 # the 1,024-point clouds are never larger than point_all: one grouping a step
-# or an eval batch (gm3d_tpu/train/finetune.py:75-76, :154)
+# or an eval batch (gm3d_tpu/train/finetune.py:75-76, :154); trained together, one
+# launch a batched step or eval batch for every fold (the ops' vmap rules)
 FS_LAUNCHES_PER_STEP = {"fps": 1, "knn": 1, "patch_embed": 0, "attention_fwd": 0,
                         "attention_bwd": 0}
-
+# the steps compared, fold for fold, between the batched and the per-fold runs: the CLI's
+# first four (one step an epoch at 50 clouds, the warm-up's rates 1e-6, 1e-6, 5.09e-5,
+# 1.008e-4); rounding grows chaotically with the rate: a fifth step at 1.507e-4 left the
+# M2AE folds up to 1.23e-3 apart (NVIDIA H100 80GB HBM3, 700.00 W)
+FS_STEPS, TOL_FS_LOSS = 4, 2e-3
 
 def _seg_serve_cli(art: str, clouds: np.ndarray, cls: np.ndarray, log_path: str) -> dict:
     """POST to the served segmentation artifact: one JSON request with the
@@ -2431,66 +2448,195 @@ def phase_segmentation(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
     return {"launches": launches, "knn_propagation": knn_launch}
 
 
-def phase_fewshot(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
-    """The few-shot harness at full width from the pretrain checkpoint."""
+def _fewshot_cli_runs(config: str, tmp: str, name: str, batch: int, epochs: int,
+                      per_step: dict, pretrained: str | None) -> dict:
+    """The few-shot CLI on ``config`` at FS_FOLDS folds of synthetic episodes,
+    its folds trained together (the default) and then one after another,
+    every launch count from 0 before each run: the records, launches, wall
+    seconds, and each fold's accuracy within one test cloud across the two."""
     from gm3d_tpu_torch.cli import fewshot as fewshot_cli
+
+    test_batches = -(-FS_WAY * 20 // batch)
+    # an epoch: one step (50 clouds, the last partial batch dropped) and the
+    # test batches of its 100 clouds; trained together, once for all folds
+    per_fold = epochs * (FS_WAY * FS_SHOT // batch + test_batches)
+    runs = {}
+    for mode, extra, folds_launched in (("batched", [], 1),
+                                        ("sequential", ["--no-parallel_folds"], FS_FOLDS)):
+        out = os.path.join(tmp, f"{name}_{mode}")
+        flags = ["--config", config, "--synthetic", "--way", str(FS_WAY), "--shot", str(FS_SHOT),
+                 "--folds", str(FS_FOLDS), "--epochs", str(epochs), "--output_dir", out, *extra]
+        if pretrained:
+            flags += ["--pretrained", pretrained]
+        _fresh_cli_logger("gm3d.fewshot")
+        pp.reset_launches()  # the few-shot CLI's path: every launch count starts from 0 here
+        t0 = time.perf_counter()
+        records = fewshot_cli.main(flags)
+        wall = time.perf_counter() - t0
+        launches = pp.read_launches()
+        log = _read_log(out)
+        check(log == records and len(log) == 1, log)
+        rec = log[0]
+        check(len(rec["accs"]) == FS_FOLDS and all(0.0 <= a <= 100.0 for a in rec["accs"]), rec)
+        check(rec["mean"] == float(np.mean(rec["accs"]))
+              and rec["std"] == float(np.std(rec["accs"])), rec)
+        want = {k: v * per_fold * folds_launched for k, v in per_step.items()}
+        check(launches == want, f"few-shot {name} {mode} launches {launches}, expected {want}")
+        runs[mode] = {"record": rec, "launches": launches, "wall_s": wall,
+                      "seconds_per_fold": wall / FS_FOLDS}
+        if pretrained:
+            runs[mode]["keys_transferred"] = _transferred_keys(os.path.join(out, "fewshot.log"))
+    one_cloud = 100.0 / (FS_WAY * 20)
+    gaps = [abs(a - b) for a, b in zip(runs["batched"]["record"]["accs"],
+                                       runs["sequential"]["record"]["accs"])]
+    check(max(gaps) <= one_cloud + 1e-9, f"few-shot {name} accuracies apart: {gaps}")
+    runs["acc_gap_max"], runs["one_test_cloud"] = max(gaps), one_cloud
+    runs["batched_over_sequential_wall"] = runs["batched"]["wall_s"] / runs["sequential"]["wall_s"]
+    return runs
+
+
+def _busy_share(fn, tmp: str, name: str, calls: int = 2) -> float:
+    """The device's busy share over ``calls`` calls of ``fn``, from a trace."""
+    prof_dir = os.path.join(tmp, name)
+    prof = start_trace(prof_dir)
+    for _ in range(calls):
+        fn()
+    return device_busy_share(stop_trace(prof, prof_dir))
+
+
+def _fewshot_steps(config: str, batch: int, seed: int, per_step: dict, tmp: str) -> dict:
+    """The fold-batched train step at FS_FOLDS folds of ``batch`` clouds
+    against each fold's own step, full width, from the same weights and
+    generators, at the CLI's scheduled rates: per-fold losses over FS_STEPS
+    steps within TOL_FS_LOSS;
+    launches of one batched step and eval batch; ms of the batched step,
+    its eval batch, its draws on the host, and its peak memory, beside
+    FS_FOLDS times the per-fold step's and eval's; the device's busy share
+    in two batched steps and in two per-fold steps, from traces."""
+    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
     from gm3d_tpu_torch.data.datasets import SyntheticClouds
     from gm3d_tpu_torch.train import finetune as ft
-    from gm3d_tpu_torch.train.optim import build_legacy_adamw
+    from gm3d_tpu_torch.train.optim import build_legacy_adamw, set_scheduled_lr
     from gm3d_tpu_torch.train.state import create_train_state
 
-    res = {"phase": "fewshot", "way": FS_WAY, "shot": FS_SHOT, "folds": FS_FOLDS}
-    out = os.path.join(tmp, "fewshot")
-    _fresh_cli_logger("gm3d.fewshot")
-    pp.reset_launches()  # the few-shot CLI's path: every launch count starts from 0 here
-    t0 = time.perf_counter()
-    records = fewshot_cli.main(["--config", FS_CONFIG, "--synthetic", "--way", str(FS_WAY),
-                                "--shot", str(FS_SHOT), "--folds", str(FS_FOLDS),
-                                "--epochs", str(FS_EPOCHS), "--pretrained", pretrained,
-                                "--output_dir", out])
-    wall = time.perf_counter() - t0
-    launches = pp.read_launches()
-    log = _read_log(out)
-    check(log == records and len(log) == 1, log)
-    rec = log[0]
-    check(len(rec["accs"]) == FS_FOLDS and all(0.0 <= a <= 100.0 for a in rec["accs"]), rec)
-    check(rec["mean"] == float(np.mean(rec["accs"])) and rec["std"] == float(np.std(rec["accs"])),
-          rec)
-    keys = _transferred_keys(os.path.join(out, "fewshot.log"))
-    # a fold: one step an epoch (50 clouds, B 32, the last partial batch
-    # dropped) and four evaluation batches of its 100 test clouds an epoch
-    test_batches = -(-FS_WAY * 20 // FS_BATCH)
-    per_fold = FS_EPOCHS * (1 + test_batches)
-    want = {k: v * per_fold * FS_FOLDS for k, v in FS_LAUNCHES_PER_STEP.items()}
-    check(launches == want, f"few-shot launches {launches}, expected {want}")
-    res.update(record=rec, launches=launches, keys_transferred=keys,
-               wall_s=wall, seconds_per_fold=wall / FS_FOLDS)
+    cfg = cfg_from_yaml_file(config)
+    smoothing, clip = cfg["model"].get("smooth", 0.0), cfg.get("grad_norm_clip")
+    lr, wd = cfg["optimizer"]["kwargs"]["lr"], cfg["optimizer"]["kwargs"]["weight_decay"]
+    sched = legacy_cosine_epoch_schedule(lr, cfg["scheduler"]["kwargs"]["epochs"],
+                                         cfg["scheduler"]["kwargs"]["initial_epochs"], 1)
 
-    # ---- the finetune step at the episode batch: launches and ms
-    from gm3d_tpu_torch.config import build_model_from_cfg, cfg_from_yaml_file
+    def fold_model(fold):
+        model = build_model_from_cfg({**cfg["model"], "cls_dim": FS_WAY})
+        model.reset_parameters(torch.Generator().manual_seed(seed + fold))
+        return model
 
-    model = build_model_from_cfg({**cfg_from_yaml_file(FS_CONFIG)["model"], "cls_dim": FS_WAY})
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    model = model.to(DEV)
-    optimizer = build_legacy_adamw(model.named_parameters(), 5e-4, grad_clip=10.0)
-    state = create_train_state(model, optimizer)
-    step = ft.make_finetune_train_step(model, optimizer, 1024)
-    data = SyntheticClouds(FS_BATCH, 1024, num_classes=FS_WAY, seed=seed, labelled=True)
-    items = [data[i][2] for i in range(FS_BATCH)]
-    pts = torch.from_numpy(np.stack([p for p, _ in items])).to(DEV)
-    labels = torch.tensor([lab for _, lab in items], device=DEV)
-    gen = torch.Generator(device=DEV).manual_seed(seed)
+    clouds, classes = [], []
+    for fold in range(FS_FOLDS):
+        data = SyntheticClouds(batch, 1024, num_classes=FS_WAY, seed=seed + fold, labelled=True)
+        items = [data[i][2] for i in range(batch)]
+        clouds.append(np.stack([p for p, _ in items]))
+        classes.append([lab for _, lab in items])
+    pts = torch.from_numpy(np.stack(clouds)).to(DEV)
+    labels = torch.tensor(classes, device=DEV)
+
+    models = [fold_model(f) for f in range(FS_FOLDS)]
+    folded = ft.FoldedModel(models, DEV)  # copies: each model goes on to its own run
+    optimizer = build_legacy_adamw(folded.params.items(), lr, wd, grad_clip=clip, fold_axis=True)
+    state = create_train_state(folded, optimizer)
+    step = ft.make_fold_batched_train_step(folded, optimizer, 1024, smoothing, device=DEV)
+    eval_step = ft.make_fold_batched_eval_step(folded, 1024, device=DEV)
+    gens = [torch.Generator(device=DEV).manual_seed(seed + f) for f in range(FS_FOLDS)]
+    batched_losses = []
+    for k in range(FS_STEPS):
+        pp.reset_launches()
+        set_scheduled_lr(optimizer, sched(k))
+        batched_losses.append(step(state, pts, labels, gens)[1]["loss"].tolist())
+        if k == 0:
+            torch.cuda.synchronize()
+            launches_step = pp.read_launches()
     pp.reset_launches()
-    step(state, pts, labels, gen)
+    eval_step(pts)
     torch.cuda.synchronize()
-    res["launches_per_train_step"] = pp.read_launches()
-    check(res["launches_per_train_step"] == FS_LAUNCHES_PER_STEP, res["launches_per_train_step"])
-    ms, wall_ms, losses = _step_ms(lambda: step(state, pts, labels, gen)[1])
-    res["step"] = {"batch": FS_BATCH, "step_ms_cuda_events": ms, "step_ms_wall": wall_ms,
-                   "clouds_per_s": FS_BATCH / wall_ms * 1e3, "losses": losses}
+    launches_eval = pp.read_launches()
+    check(launches_step == per_step and launches_eval == per_step,
+          f"a batched step {launches_step}, eval batch {launches_eval}, expected {per_step}")
+
+    losses_alone, gaps = [], []
+    for fold in range(FS_FOLDS):
+        model = models[fold].to(DEV)
+        opt = build_legacy_adamw(model.named_parameters(), lr, wd, grad_clip=clip)
+        alone = create_train_state(model, opt)
+        one = ft.make_finetune_train_step(model, opt, 1024, smoothing, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(seed + fold)
+        mine = []
+        for k in range(FS_STEPS):
+            set_scheduled_lr(opt, sched(k))
+            mine.append(float(one(alone, pts[fold], labels[fold], gen)[1]["loss"]))
+        losses_alone.append(mine)
+        gaps += [abs(batched_losses[k][fold] - mine[k]) / abs(mine[k]) for k in range(FS_STEPS)]
+        if fold == 0:
+            fold_step_ms, fold_step_wall, _ = _step_ms(
+                lambda: one(alone, pts[0], labels[0], gen)[1])
+            fold_busy = _busy_share(lambda: one(alone, pts[0], labels[0], gen), tmp,
+                                    f"fold_trace_{batch}")
+            evaluate = ft.make_eval_step(model, 1024, device=DEV)
+            fold_eval_ms, fold_eval_wall, _ = _step_ms(lambda: {"loss": evaluate(pts[0]).sum()})
+        models[fold] = None
+        del model, opt, alone, one
+    check(max(gaps) <= TOL_FS_LOSS, f"batched losses {gaps} apart from each fold's own")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, wall, _ = _step_ms(lambda: {"loss": step(state, pts, labels, gens)[1]["loss"].sum()})
+    peak = torch.cuda.max_memory_allocated()
+    eval_ms, eval_wall, _ = _step_ms(lambda: {"loss": eval_step(pts).sum()})
+    batched_busy = _busy_share(lambda: step(state, pts, labels, gens), tmp,
+                               f"batched_trace_{batch}")
+    draw_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft._stack([ft.finetune_draws(g, folded.base, batch, 1024, 1024) for g in gens])
+        torch.cuda.synchronize()
+        draw_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"folds": FS_FOLDS, "batch": batch, "losses_batched": batched_losses,
+            "losses_each_fold_alone": losses_alone, "loss_rel_gap_max": max(gaps),
+            "lr_per_step": [sched(k) for k in range(FS_STEPS)],
+            "tol": TOL_FS_LOSS, "launches_per_batched_step": launches_step,
+            "launches_per_batched_eval": launches_eval,
+            "batched_step_ms_cuda_events": ms, "batched_step_ms_wall": wall,
+            "fold_step_ms_cuda_events": fold_step_ms, "fold_step_ms_wall": fold_step_wall,
+            "folds_times_fold_step_ms_wall": FS_FOLDS * fold_step_wall,
+            "batched_over_folds_times_fold_step": wall / (FS_FOLDS * fold_step_wall),
+            "batched_clouds_per_s": FS_FOLDS * batch / wall * 1e3,
+            "batched_eval_ms_cuda_events": eval_ms, "batched_eval_ms_wall": eval_wall,
+            "fold_eval_ms_wall": fold_eval_wall,
+            "folds_times_fold_eval_ms_wall": FS_FOLDS * fold_eval_wall,
+            "draws_ms_host_median": statistics.median(draw_ms),
+            "device_busy_share_batched_step": batched_busy,
+            "device_busy_share_fold_step": fold_busy,
+            "peak_bytes_batched_step": peak}
+
+
+def phase_fewshot(env: dict, tmp: str, pretrained: str, seed: int) -> dict:
+    """The few-shot CLI at full width on both families, its folds trained
+    together and one after another, and the fold-batched step against each
+    fold's own."""
+    res = {"phase": "fewshot", "way": FS_WAY, "shot": FS_SHOT, "folds": FS_FOLDS}
+    res["pointmae"] = _fewshot_cli_runs(FS_CONFIG, tmp, "fewshot", FS_BATCH, FS_EPOCHS,
+                                        FS_LAUNCHES_PER_STEP, pretrained)
+    # no Point-M2AE checkpoint in this phase: each fold's weights from its seed
+    res["m2ae"] = _fewshot_cli_runs(FS_M2AE_CONFIG, tmp, "fewshot_m2ae", FS_M2AE_BATCH, 1,
+                                    M2AE_ENCODER_LAUNCHES, None)
+    res["pointmae"]["steps"] = _fewshot_steps(FS_CONFIG, FS_BATCH, seed, FS_LAUNCHES_PER_STEP,
+                                              tmp)
+    res["m2ae"]["steps"] = _fewshot_steps(FS_M2AE_CONFIG, FS_M2AE_BATCH, seed,
+                                          M2AE_ENCODER_LAUNCHES, tmp)
     res["gpu"] = env["gpu"]
     emit(res)
-    return {"launches": launches}
+    return {"launches": res["pointmae"]["batched"]["launches"],
+            "launches_m2ae": res["m2ae"]["batched"]["launches"]}
+
 
 # the Point-M2AE family: configs/m2ae/config_Point_M2AE.yaml at full width (3 scales of
 # 512 / 256 / 64 groups of 16 / 8 / 8, depths 5 / 5 / 5, widths 96 / 192 / 384, decoder 384 /
@@ -3730,9 +3876,12 @@ def main() -> None:
         kern["launches_step_options"] = options["launches"][kern["name"]]
         # both finetune recipes' CLI runs: FPS and KNN only, as the JAX steps route it
         kern["launches_finetune"] = tuned["launches"][kern["name"]]
-        # the seg CLI's and the few-shot CLI's runs: FPS and KNN only
+        # the seg CLI's and the few-shot CLI's runs (its ten folds trained together): FPS
+        # and KNN only
         kern["launches_segmentation"] = segmented["launches"][kern["name"]]
         kern["launches_fewshot"] = few["launches"][kern["name"]]
+        # the Point-M2AE few-shot CLI's ten folds trained together (FPS and KNN only)
+        kern["launches_fewshot_m2ae"] = few["launches_m2ae"][kern["name"]]
         # the Point-M2AE pretrain CLI's run and its classifier's finetune: FPS and KNN only
         kern["launches_m2ae"] = m2ae["launches"][kern["name"]]
         kern["launches_m2ae_finetune"] = m2ae["launches_finetune"][kern["name"]]

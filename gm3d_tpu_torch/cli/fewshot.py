@@ -18,18 +18,21 @@ no layer decay, the label smoothing of the config's ``model.smooth``.
 
 Fold ``f`` draws its initial weights and its steps' random numbers from
 generators seeded ``f``, and shuffles its episode by ``f``, as the JAX CLI's
-keys do. The JAX CLI trains all folds at once by default, as one ``vmap``
-(``--parallel_folds``), and numerically equal to its sequential path; here
-the folds always run one after another with those same per-fold
-generators, and the flag is accepted for both values (training the folds
-together on the card is ``ROADMAP.md`` Queue 1 item 4c).
+keys do. By default (``--parallel_folds``) the folds train together, as the
+JAX CLI's one ``vmap`` over them does: F per-fold models stacked into one
+fold-batched model (``train/finetune.py::FoldedModel``), one batched step a
+batch of every fold under ``torch.func.vmap`` (FPS and KNN one launch each for
+all folds), one batched evaluation a test batch, each fold still drawing from
+its own generator; each fold computes what it computes alone.
+``--no-parallel_folds`` runs them one after another. Both give the same
+record.
 
 Runs on the GPU unless ``--device cpu`` is given; ``--batch_floor`` is a
 no-op. Under ``torchrun --nproc_per_node N`` the folds are dealt to ranks,
-fold f to rank f mod N, each run whole on its rank as in one process
-(``replica_scope``) with its own generators, and the accuracies are summed
-over ranks: the same numbers as one process computes, as the JAX CLI's
-folds over devices are. A Point-M2AE config
+fold f to rank f mod N, each rank's folds run as in one process
+(``replica_scope``; together, or in turn) with their own generators, and
+the accuracies are summed over ranks: the same numbers as one process
+computes, as the JAX CLI's folds over devices are. A Point-M2AE config
 (``configs/m2ae/fewshot-Point-M2AE.yaml``: label smoothing 0.3) trains the
 hierarchical classifier.
 """
@@ -38,7 +41,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +54,10 @@ from gm3d_tpu_torch.data.datasets import DataLoader, SyntheticClouds, build_data
 from gm3d_tpu_torch.eval.metrics import accuracy
 from gm3d_tpu_torch.parallel.context import get_context, replica_scope
 from gm3d_tpu_torch.parallel.mesh import barrier
-from gm3d_tpu_torch.train.finetune import make_eval_step, make_finetune_train_step
+from gm3d_tpu_torch.train.finetune import (FoldedModel, make_eval_step,
+                                           make_finetune_train_step,
+                                           make_fold_batched_eval_step,
+                                           make_fold_batched_train_step)
 from gm3d_tpu_torch.train.optim import build_legacy_adamw, set_scheduled_lr
 from gm3d_tpu_torch.train.schedules import legacy_cosine_epoch_schedule
 from gm3d_tpu_torch.train.state import create_train_state
@@ -69,10 +75,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "from it, the reference few-shot protocol")
     p.add_argument("--torch_ckpt", action="store_true", help="--pretrained is a torch .pth")
     p.add_argument("--parallel_folds", default=True, action=argparse.BooleanOptionalAction,
-                   help="the JAX CLI trains all folds in one vmapped program; here the "
-                        "folds run one after another either way, each from the generators "
-                        "seeded by its index, which is what the JAX CLI's parallel path "
-                        "computes")
+                   help="train a process's folds together, as one fold-batched model "
+                        "(torch.func.vmap over the stacked folds: episode batches are "
+                        "small, so the folds are the batch); each fold computes what it "
+                        "computes alone. --no-parallel_folds runs them one after another")
     return p.parse_args(argv)
 
 
@@ -118,6 +124,19 @@ def init_fold_model(args, cfg, fold: int, dtype: torch.dtype, logger):
     return model
 
 
+def _schedule(cfg, steps_per_epoch: int):
+    """The legacy runner's per-epoch cosine (cfgs/fewshot.yaml is
+    legacy-format); its horizon is the scheduler's epochs, not --epochs."""
+    return legacy_cosine_epoch_schedule(
+        cfg["optimizer"]["kwargs"]["lr"],
+        cfg["scheduler"]["kwargs"].get("epochs", cfg["max_epoch"]),
+        cfg["scheduler"]["kwargs"]["initial_epochs"], max(steps_per_epoch, 1))
+
+
+def _evaluates(args, epoch: int, epochs: int) -> bool:
+    return (epoch + 1) % args.val_freq == 0 or epoch == epochs - 1
+
+
 def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
     """Train and evaluate one fold; its best test accuracy in percent."""
     dtype = compute_dtype(args)
@@ -125,13 +144,7 @@ def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
     train_loader, test_loader = make_fold_data(args, cfg, fold, npoints)
     model = init_fold_model(args, cfg, fold, dtype, logger).to(dev)
     epochs = cfg["max_epoch"]
-    steps_per_epoch = max(len(train_loader), 1)
-    # the legacy runner's stack (cfgs/fewshot.yaml is legacy-format); the
-    # cosine's horizon is the scheduler's epochs, not --epochs
-    sched = legacy_cosine_epoch_schedule(
-        cfg["optimizer"]["kwargs"]["lr"],
-        cfg["scheduler"]["kwargs"].get("epochs", epochs),
-        cfg["scheduler"]["kwargs"]["initial_epochs"], steps_per_epoch)
+    sched = _schedule(cfg, len(train_loader))
     optimizer = build_legacy_adamw(model.named_parameters(), sched(0),
                                    cfg["optimizer"]["kwargs"]["weight_decay"],
                                    grad_clip=cfg.get("grad_norm_clip"))
@@ -148,7 +161,7 @@ def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
         for pts, labels in train_loader:
             set_scheduled_lr(optimizer, sched(state.step))
             step(state, torch.as_tensor(pts), torch.as_tensor(labels), generator)
-        if (epoch + 1) % args.val_freq == 0 or epoch == epochs - 1:
+        if _evaluates(args, epoch, epochs):
             logits, labels_all = [], []
             for pts, labels in test_loader:
                 logits.append(eval_step(torch.as_tensor(pts)))
@@ -160,16 +173,81 @@ def run_fold(args, cfg, fold: int, logger, dev: torch.device) -> float:
     return best
 
 
+def _stacked(batches) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch of every fold -> (F, B, ...) points and labels."""
+    return (torch.from_numpy(np.stack([np.asarray(b[0]) for b in batches])),
+            torch.from_numpy(np.stack([np.asarray(b[1]) for b in batches])))
+
+
+def run_folds_together(args, cfg, folds: List[int], logger, dev: torch.device) -> List[float]:
+    """Train and evaluate ``folds`` together (the JAX CLI's
+    ``run_folds_parallel``): each fold's model from ``init_fold_model``,
+    stacked into one ``FoldedModel``, its draws from the generator seeded by
+    its index; one fold-batched step a batch of every fold, one fold-batched
+    evaluation a test batch. The folds' episodes must be of one size, as the
+    protocol's are. Returns each fold's best test accuracy in percent, in the
+    order of ``folds``."""
+    dtype = compute_dtype(args)
+    npoints = cfg.get("npoints", 1024)
+    loaders = [make_fold_data(args, cfg, fold, npoints) for fold in folds]
+    train_loaders, test_loaders = [t for t, _ in loaders], [t for _, t in loaders]
+    for kind, group in (("train", train_loaders), ("test", test_loaders)):
+        if len({(len(t), len(t.dataset)) for t in group}) > 1:
+            raise ValueError(f"the folds' {kind} episodes differ in size and cannot be "
+                             "trained together: pass --no-parallel_folds")
+    folded = FoldedModel([init_fold_model(args, cfg, fold, dtype, logger) for fold in folds],
+                         dev)
+    epochs = cfg["max_epoch"]
+    sched = _schedule(cfg, len(train_loaders[0]))
+    optimizer = build_legacy_adamw(folded.params.items(), sched(0),
+                                   cfg["optimizer"]["kwargs"]["weight_decay"],
+                                   grad_clip=cfg.get("grad_norm_clip"), fold_axis=True)
+    state = create_train_state(folded, optimizer)
+    smoothing = cfg["model"].get("smooth", 0.0)
+    if smoothing:
+        logger.info(f"label smoothing {smoothing} (config model.smooth)")
+    step = make_fold_batched_train_step(folded, optimizer, npoints, smoothing, device=dev)
+    eval_step = make_fold_batched_eval_step(folded, npoints, device=dev)
+
+    generators = [torch.Generator(device=dev).manual_seed(fold) for fold in folds]
+    best = np.zeros(len(folds))
+    for epoch in range(epochs):
+        # every fold's epoch drained to its end before zipping: a loader left
+        # mid-epoch never increments its epoch, and would replay its shuffle
+        for batches in zip(*[list(t) for t in train_loaders]):
+            set_scheduled_lr(optimizer, sched(state.step))
+            step(state, *_stacked(batches), generators)
+        if _evaluates(args, epoch, epochs):
+            logits, labels_all = [], []
+            for batches in zip(*[list(t) for t in test_loaders]):
+                pts, labels = _stacked(batches)
+                logits.append(eval_step(pts))
+                labels_all.append(labels.numpy())
+            logits_np = torch.cat(logits, dim=1).float().cpu().numpy()
+            labels_np = np.concatenate(labels_all, axis=1)
+            accs = [accuracy(logits_np[i], labels_np[i]) * 100.0 for i in range(len(folds))]
+            best = np.maximum(best, accs)
+    for fold, acc in zip(folds, best):
+        logger.info(f"fold {fold}: best acc {acc:.2f}")
+    return [float(a) for a in best]
+
+
 def run_folds(args, cfg, logger, dev: torch.device) -> List[float]:
     """Every fold's best accuracy, in fold order: fold f runs on rank f mod
-    the world size, as one process, and the accuracies are summed over
+    the world size, as one process (a rank's folds together with
+    ``--parallel_folds``, else in turn), and the accuracies are summed over
     ranks on the host group."""
     ctx = get_context()
     world, rank = (1, 0) if ctx is None else (ctx.world, ctx.rank)
     accs = torch.zeros(args.folds, dtype=torch.float64)
+    mine = list(range(rank, args.folds, world))
     with replica_scope():
-        for fold in range(rank, args.folds, world):
-            accs[fold] = run_fold(args, cfg, fold, logger, dev)
+        if args.parallel_folds and mine:
+            accs[mine] = torch.tensor(run_folds_together(args, cfg, mine, logger, dev),
+                                      dtype=torch.float64)
+        else:
+            for fold in mine:
+                accs[fold] = run_fold(args, cfg, fold, logger, dev)
     if ctx is not None:
         dist.all_reduce(accs, group=ctx.host_group)
     return accs.tolist()

@@ -210,15 +210,45 @@ class TorchBatchNorm(nn.BatchNorm1d):
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stochastic depth: drop the residual branch per sample."""
+              generator: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic depth: drop the residual branch per sample. ``keep`` (B, 1,
+    ..., 1) bool, a mask drawn beforehand (``draw_depth_masks``), replaces the
+    draw from ``generator``; in train mode a nonzero rate needs one of them."""
     if deterministic or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = draw_rows(lambda s: torch.rand(s, device=x.device, generator=generator),
-                     shape) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep_prob = 1.0 - rate
+    if keep is None:
+        if generator is None:
+            raise ValueError("stochastic depth in train mode needs drawn keep masks "
+                             "or a generator")
+        keep = _draw_keep(generator, keep_prob, (x.shape[0],) + (1,) * (x.ndim - 1),
+                          x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _draw_keep(generator: Optional[torch.Generator], keep_prob: float, shape,
+               device) -> torch.Tensor:
+    return draw_rows(lambda s: torch.rand(s, device=device, generator=generator),
+                     shape) < keep_prob
+
+
+def draw_depth_masks(generator: Optional[torch.Generator], encoders: Sequence[nn.Module],
+                     batch: int, device=None) -> tuple:
+    """The keep masks of stochastic depth for one train-mode forward through
+    ``encoders`` (``TransformerEncoder``s in the order the forward runs them):
+    for each encoder, for each block, the attention branch's and the MLP
+    branch's (batch, 1, 1) bool, drawn from ``generator`` in the order and
+    shape ``drop_path`` draws them inside the forward, so that either route
+    takes the same numbers from a generator; ``()`` for a block of rate 0,
+    which draws nothing. The forward takes them as ``depth_masks``, which is how a
+    forward under ``torch.func.vmap`` (no random draw inside) gets them."""
+    return tuple(
+        tuple(() if block.drop_path_rate == 0.0 else
+              tuple(_draw_keep(generator, 1.0 - block.drop_path_rate, (batch, 1, 1), device)
+                    for _ in range(2))
+              for block in encoder.blocks)
+        for encoder in encoders)
 
 
 class Mlp(nn.Module):
@@ -300,12 +330,16 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``keep``: the two branches' stochastic-depth keep masks, in place of
+        draws from ``generator`` (None or empty: none given)."""
         det = not self.training
+        keep_attn, keep_mlp = keep if keep else (None, None)
         h = self.attn(self.norm1(x), attn_mask)
-        x = x + drop_path(h, self.drop_path_rate, det, generator)
+        x = x + drop_path(h, self.drop_path_rate, det, generator, keep_attn)
         h = self.mlp(self.norm2(x))
-        return x + drop_path(h, self.drop_path_rate, det, generator)
+        return x + drop_path(h, self.drop_path_rate, det, generator, keep_mlp)
 
 
 def _dpr(drop_path_rate: float, depth: int) -> Sequence[float]:
@@ -331,9 +365,14 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        for block in self.blocks:
-            x = block(x + pos, attn_mask, generator)
+                generator: Optional[torch.Generator] = None,
+                depth_masks: Optional[Sequence] = None) -> torch.Tensor:
+        """``depth_masks``: one entry a block of ``draw_depth_masks``' (its
+        keep masks, or ``()``), in place of draws from ``generator``."""
+        if depth_masks is None:
+            depth_masks = (None,) * len(self.blocks)
+        for block, keep in zip(self.blocks, depth_masks, strict=True):
+            x = block(x + pos, attn_mask, generator, keep)
         return x
 
 

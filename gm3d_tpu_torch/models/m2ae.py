@@ -179,12 +179,19 @@ class M2AEEncoder(nn.Module):
     def hierarchy(self, pts: torch.Tensor) -> Hierarchy:
         return build_hierarchy(pts, self.num_groups, self.group_sizes)
 
+    def stages(self) -> tuple:
+        """The transformer stages, finest first: the order of the forward."""
+        return tuple(getattr(self, f"stage{s}") for s in range(self.num_scales))
+
     def forward(self, pts: torch.Tensor, vis_masks: Optional[Sequence[torch.Tensor]] = None,
                 hierarchy: Optional[Hierarchy] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                depth_masks: Optional[tuple] = None):
         """Encode every scale. ``vis_masks``: one (B, G_s) bool a scale (True =
         visible), or None for the unmasked path. ``hierarchy``: a
-        ``build_hierarchy`` result of ``pts``, if already at hand. Returns
+        ``build_hierarchy`` result of ``pts``, if already at hand.
+        ``depth_masks``: ``blocks.draw_depth_masks`` over ``stages()``, in
+        place of stochastic-depth draws from ``generator``. Returns
         ``(tokens_per_scale, centers, member_idx)``."""
         centers, member_idx = hierarchy if hierarchy is not None else self.hierarchy(pts)
         tokens_all = []
@@ -211,7 +218,9 @@ class M2AEEncoder(nn.Module):
                 attn_mask = allow | eye
             else:
                 attn_mask = local
-            tokens = getattr(self, f"stage{s}")(tokens, pos, attn_mask, generator)
+            tokens = getattr(self, f"stage{s}")(
+                tokens, pos, attn_mask, generator,
+                None if depth_masks is None else depth_masks[s])
             tokens_all.append(tokens)
         return tokens_all, centers, member_idx
 
@@ -383,12 +392,18 @@ class PointM2AEClassifier(nn.Module):
             if isinstance(layer, nn.Linear):
                 lecun_normal_(layer, generator)
 
+    def drop_path_encoders(self) -> tuple:
+        """The block stacks whose stochastic depth a train-mode forward draws,
+        in its order (``blocks.draw_depth_masks``)."""
+        return self.encoder.stages()
+
     def forward(self, pts: torch.Tensor, dropout_masks=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                depth_masks: Optional[tuple] = None) -> torch.Tensor:
         """Logits. In train mode ``dropout_masks`` (the head's two keep masks,
         ``ClsHead.forward``) replace the head's dropout draws and
-        ``generator`` draws stochastic depth."""
-        tokens_all = self.encoder(pts, generator=generator)[0]
+        ``generator`` draws stochastic depth, or ``depth_masks`` hold it."""
+        tokens_all = self.encoder(pts, generator=generator, depth_masks=depth_masks)[0]
         parts = []
         for s, tokens in enumerate(tokens_all):
             x = getattr(self, f"norm{s}")(tokens)

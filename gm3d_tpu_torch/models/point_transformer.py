@@ -76,10 +76,17 @@ class PointTransformer(nn.Module):
         trunc_normal_(self.cls_token, generator)
         trunc_normal_(self.cls_pos, generator)
 
-    def features(self, pts: torch.Tensor,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+    def drop_path_encoders(self) -> tuple:
+        """The block stacks whose stochastic depth a train-mode forward draws,
+        in its order (``blocks.draw_depth_masks``)."""
+        return (self.blocks,)
+
+    def features(self, pts: torch.Tensor, generator: torch.Generator | None = None,
+                 depth_masks: tuple | None = None) -> torch.Tensor:
         """Token sequence [cls, groups...] after the encoder stack;
-        ``generator`` draws the blocks' stochastic depth in train mode."""
+        ``generator`` draws the blocks' stochastic depth in train mode, or
+        ``depth_masks`` (``draw_depth_masks`` over ``drop_path_encoders()``)
+        hold it."""
         grouped = group_points(pts, self.num_group, self.group_size)
         tokens = self.encoder(grouped.neighborhood)
         batch, dt = tokens.shape[0], self.compute_dtype
@@ -87,14 +94,16 @@ class PointTransformer(nn.Module):
         cls_pos = self.cls_pos.to(dt).expand(batch, -1, -1)
         pos = torch.cat([cls_pos, self.pos_embed(grouped.center)], dim=1)
         x = torch.cat([cls_tok, tokens], dim=1)
-        return self.norm_p(self.blocks(x, pos, generator=generator))
+        blocks_masks = None if depth_masks is None else depth_masks[0]
+        return self.norm_p(self.blocks(x, pos, generator=generator, depth_masks=blocks_masks))
 
     def forward(self, pts: torch.Tensor, dropout_masks=None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                depth_masks: tuple | None = None) -> torch.Tensor:
         """Logits. In train mode ``dropout_masks`` (the head's two keep masks,
         ``ClsHead.forward``) replace the head's dropout draws, and
-        ``generator`` draws stochastic depth."""
-        x = self.features(pts, generator)
+        ``generator`` draws stochastic depth, or ``depth_masks`` hold it."""
+        x = self.features(pts, generator, depth_masks)
         concat_f = torch.cat([x[:, 0], x[:, 1:].max(dim=1).values], dim=-1)
         return self.cls_head_finetune(concat_f, dropout_masks)
 

@@ -22,8 +22,11 @@ registered when this module is imported (no ``nvcc`` needed for that). Its CPU
 implementation is the plain version; its CUDA implementation launches the
 kernel or raises; its fake implementation gives the output's shape, so that
 ``torch.export`` records the op as one node of a program, which then runs the
-kernel on the card and the plain version on the CPU. The kernel library is
-built at the first launch.
+kernel on the card and the plain version on the CPU. Its vmap rule folds the
+mapped axis into the batch, (F, B, N, 3) -> (F·B, N, 3), and calls the op once:
+the few-shot folds trained together (``train/finetune.py``) take one launch for
+every fold, never vmap's loop over slices. The kernel library is built at the
+first launch.
 """
 
 from __future__ import annotations
@@ -171,6 +174,15 @@ def _fps_cuda(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
 @_fps_op.register_fake
 def _fps_fake(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     return xyz.new_empty((xyz.shape[0], n_samples), dtype=torch.int32)
+
+
+@_fps_op.register_vmap
+def _fps_vmap(info, in_dims, xyz: torch.Tensor, n_samples: int):
+    """``gm3d::fps`` under ``torch.func.vmap``: the mapped clouds are more
+    clouds of one call (one launch on the card)."""
+    xyz = xyz.movedim(in_dims[0], 0)
+    out = torch.ops.gm3d.fps(xyz.flatten(0, 1), n_samples)
+    return out.unflatten(0, xyz.shape[:2]), 0
 
 
 def fps_indices(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:

@@ -24,8 +24,10 @@ Three implementations of the same function:
 (``torch.ops.gm3d.knn``, always ``(dist, idx)``; the wrapper picks), registered
 when this module is imported. Its CPU implementation is the plain version, its
 CUDA implementation launches the kernel or raises, and its fake implementation
-gives the outputs' shapes for ``torch.export``. The outputs carry no gradient
-on either device. ``k > N`` raises ``ValueError`` on both routes.
+gives the outputs' shapes for ``torch.export``. Its vmap rule folds the mapped
+axis into the batch and calls the op once (one launch for every few-shot fold
+trained together), as ``gm3d::fps``'s does. The outputs carry no gradient on
+either device. ``k > N`` raises ``ValueError`` on both routes.
 """
 
 from __future__ import annotations
@@ -286,6 +288,18 @@ def _knn_fake(ref: torch.Tensor, query: torch.Tensor, k: int
     shape = (query.shape[0], query.shape[1], k)
     return (query.new_empty(shape, dtype=torch.float32),
             query.new_empty(shape, dtype=torch.int32))
+
+
+@_knn_op.register_vmap
+def _knn_vmap(info, in_dims, ref: torch.Tensor, query: torch.Tensor, k: int):
+    """``gm3d::knn`` under ``torch.func.vmap``: the mapped clouds are more
+    clouds of one call (one launch on the card); an unmapped cloud is shared
+    by every slice."""
+    ref, query = (t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape)
+                  for t, d in zip((ref, query), in_dims[:2]))
+    lead = query.shape[:2]
+    dist, idx = torch.ops.gm3d.knn(ref.flatten(0, 1), query.flatten(0, 1), k)
+    return (dist.unflatten(0, lead), idx.unflatten(0, lead)), (0, 0)
 
 
 def _no_gradient(ctx, inputs, output) -> None:

@@ -14,19 +14,35 @@ The JAX step is one compiled graph; here it runs eagerly and updates the
 model and the optimizer in place. Random draws come from a
 ``torch.Generator`` or are handed in (``draws``), so that a test can feed the
 JAX step's own draws.
+
+Few-shot folds train together (``cli/fewshot.py``, the JAX CLI's
+``jax.vmap`` of these steps over its folds): ``FoldedModel`` holds F copies of
+one classifier as parameters and buffers stacked along a leading fold axis
+(``torch.func.stack_module_state``), and ``make_fold_batched_train_step`` /
+``make_fold_batched_eval_step`` run the steps above under
+``torch.func.vmap(functional_call(...))``: each fold's draws from its own
+generator, stacked; one backward of the summed losses; the legacy AdamW over
+the stacked parameters with each fold clipped by its own norm
+(``train/optim.py::FoldClippedAdamW``). FPS and KNN take the fold axis through
+their ops' vmap rules, one launch for every fold. Each fold computes what its
+own step computes.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Mapping, Optional, Tuple
+import copy
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call, stack_module_state, vmap
+from torch.utils._pytree import tree_map
 
 from gm3d_tpu_torch.data.transforms import scale_and_translate
+from gm3d_tpu_torch.models.blocks import draw_depth_masks
 from gm3d_tpu_torch.ops.fps import fps
-from gm3d_tpu_torch.parallel.context import draw_rows
+from gm3d_tpu_torch.parallel.context import active, draw_rows
 from gm3d_tpu_torch.parallel.mesh import mean_over_ranks, reduce_gradients
 from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.optim import global_norm
@@ -72,9 +88,12 @@ def finetune_draws(generator: Optional[torch.Generator], model: nn.Module, batch
                    num_points: int, npoints: int) -> Dict[str, object]:
     """One train step's random draws, on the generator's device: the
     subsample's noise (batch, points after FPS) where the step subsamples,
-    the augmentation's scale and shift (batch, 1, 3), and the two keep masks
+    the augmentation's scale and shift (batch, 1, 3), the two keep masks
     (batch, 256) of the head's dropouts, each unit kept with probability
-    ``1 - p``. Stochastic depth draws from the generator inside the forward."""
+    ``1 - p``, and last the stochastic-depth keep masks of every block
+    (``depth``, ``blocks.draw_depth_masks``), in the order and shape in which
+    the forward would draw them from the generator itself. ``model`` is read
+    for its structure only (its rates)."""
     dev = generator.device if generator is not None else None
     point_all = point_all_for(npoints)
     total = min(num_points, point_all)
@@ -85,7 +104,25 @@ def finetune_draws(generator: Optional[torch.Generator], model: nn.Module, batch
     out["shift"] = _uniform(generator, (batch, 1, 3), dev) * 0.4 - 0.2
     p = next(layer.p for layer in model.cls_head_finetune if isinstance(layer, nn.Dropout))
     out["dropout"] = tuple(_uniform(generator, (batch, 256), dev) >= p for _ in range(2))
+    out["depth"] = draw_depth_masks(generator, model.drop_path_encoders(), batch, dev)
     return out
+
+
+def _train_inputs(pts: torch.Tensor, draws: Mapping[str, object], npoints: int,
+                  augment: bool) -> torch.Tensor:
+    """The train step's clouds before the forward: FPS to ``point_all`` where
+    larger, the subsample to ``npoints``, the augmentation (steps 1 - 3 of
+    ``make_finetune_train_step``)."""
+    point_all = point_all_for(npoints)
+    with torch.no_grad():
+        x = pts
+        if x.shape[1] > point_all:
+            x = fps(x, point_all)
+        if x.shape[1] > npoints or x.shape[1] == point_all:
+            x = subsample(None, x, npoints, noise=draws["noise"])
+        if augment:
+            x = scale_and_translate(None, x, scale=draws["scale"], shift=draws["shift"])
+    return x
 
 
 def make_finetune_train_step(model: nn.Module, optimizer, npoints: int = 1024,
@@ -98,18 +135,19 @@ def make_finetune_train_step(model: nn.Module, optimizer, npoints: int = 1024,
        exactly ``point_all`` points (the JAX condition);
     3. ``scale_and_translate`` when ``augment``;
     4. the train-mode forward (BatchNorm batch statistics, the head's
-       dropout, stochastic depth drawn from ``generator``);
+       dropout, stochastic depth from the drawn masks);
     5. cross-entropy with ``smoothing``, accuracy in percent;
     6. the optimizer (its clip, layer decay and accumulation are its own).
 
     ``draws`` (``finetune_draws``'s: ``noise`` (B, N') where the step
     subsamples, ``scale``, ``shift`` (B, 1, 3), ``dropout``, the head's two
-    keep masks) replaces the draws, which are otherwise made by
-    ``finetune_draws`` from ``generator``. Returns ``(state, {"loss", "acc", "grad_norm"})``, 0-d
-    tensors on the device; ``grad_norm`` is the micro-batch's, before any
-    clip."""
+    keep masks, and ``depth``, the stochastic-depth masks; without ``depth``
+    the forward draws them from ``generator``) replaces the draws, which are
+    otherwise made by ``finetune_draws`` from ``generator``. Returns
+    ``(state, {"loss", "acc", "grad_norm"})``, 0-d tensors on the device;
+    ``grad_norm`` is the micro-batch's, before any clip."""
     dev = resolve_device(device)
-    point_all = point_all_for(npoints)
+    point_all_for(npoints)  # an unsupported npoints raises here, not at the first step
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
@@ -121,16 +159,10 @@ def make_finetune_train_step(model: nn.Module, optimizer, npoints: int = 1024,
         pts, labels = pts.to(dev), labels.to(dev)
         if draws is None:
             draws = finetune_draws(generator, model, pts.shape[0], pts.shape[1], npoints)
-        with torch.no_grad():
-            x = pts
-            if x.shape[1] > point_all:
-                x = fps(x, point_all)
-            if x.shape[1] > npoints or x.shape[1] == point_all:
-                x = subsample(None, x, npoints, noise=draws["noise"])
-            if augment:
-                x = scale_and_translate(None, x, scale=draws["scale"], shift=draws["shift"])
+        x = _train_inputs(pts, draws, npoints, augment)
         model.train()
-        logits = model(x, [m.to(dev) for m in draws["dropout"]], generator=generator)
+        logits = model(x, [m.to(dev) for m in draws["dropout"]], generator=generator,
+                       depth_masks=draws.get("depth"))
         loss, acc = losses.classification_loss(logits, labels, smoothing)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -188,6 +220,103 @@ def make_eval_step(model: nn.Module, npoints: int = 1024, device="cuda") -> Call
         with _eval_mode(model):
             x = fps(pts, npoints) if pts.shape[1] > npoints else pts
             return model(x)
+
+    return step
+
+
+class FoldedModel:
+    """F copies of one classifier, one a few-shot fold, as ONE model with a
+    leading fold axis: ``params`` and ``buffers`` map the module's names to
+    the F modules' tensors stacked along axis 0 (``stack_module_state``; the
+    parameters leaves that require gradients), on ``device``. ``base`` is a
+    copy of the first module on the meta device, which ``functional_call``
+    runs with a fold's slice of them; its train / eval flag is the forward's
+    mode. The F modules must share one structure; they are not kept."""
+
+    def __init__(self, models: Sequence[nn.Module], device):
+        params, buffers = stack_module_state(list(models))
+        self.folds = len(models)
+        self.params = {n: p.detach().to(device).requires_grad_(p.requires_grad)
+                       for n, p in params.items()}
+        self.buffers = {n: b.to(device) for n, b in buffers.items()}
+        self.base = copy.deepcopy(models[0]).to("meta")
+
+    def __call__(self, params, buffers, *args, **kwargs):
+        """One fold's forward: ``base`` on that fold's parameters and buffers."""
+        return functional_call(self.base, (params, buffers), args, kwargs)
+
+
+def _stack(trees: Sequence) -> object:
+    """Per-fold trees of tensors (draws) -> one tree of (F, ...) tensors."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def make_fold_batched_train_step(folded: FoldedModel, optimizer, npoints: int = 1024,
+                                 smoothing: float = 0.0, augment: bool = True,
+                                 device="cuda") -> Callable:
+    """Build ``step(state, pts, labels, generators)``: one
+    ``make_finetune_train_step`` step for each of the F folds of ``folded``,
+    all at once. ``pts`` (F, B, N, 3), ``labels`` (F, B); ``generators``, one
+    a fold, each drawing its fold's ``finetune_draws``, in fold order. Steps
+    1 - 5 run under
+    ``torch.func.vmap`` (random draws there raise: every draw is made before),
+    the F losses are summed for one backward, and ``optimizer`` (the legacy
+    AdamW with ``fold_axis``: a clip a fold) steps the stacked parameters;
+    each fold's BatchNorm running statistics move in place. Returns
+    ``(state, {"loss", "acc", "grad_norm"})``, each (F,) on the device.
+
+    A fold is one process's own run: the step runs no data parallelism (the
+    few-shot CLI deals whole folds to ranks)."""
+    dev = resolve_device(device)
+    point_all_for(npoints)  # an unsupported npoints raises here, not at the first step
+    base = folded.base
+
+    def fold_loss(params, buffers, pts, labels, draws):
+        x = _train_inputs(pts, draws, npoints, augment)
+        logits = folded(params, buffers, x, draws["dropout"], depth_masks=draws.get("depth"))
+        return losses.classification_loss(logits, labels, smoothing)
+
+    batched = vmap(fold_loss, randomness="error")
+
+    def step(state: TrainState, pts: torch.Tensor, labels: torch.Tensor,
+             generators: Sequence[torch.Generator]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.student is not folded or state.optimizer is not optimizer:
+            raise ValueError("the step was built for another model or optimizer")
+        if active() is not None:
+            raise ValueError("the fold-batched step runs one process's folds: call it "
+                             "inside parallel.context.replica_scope()")
+        pts, labels = pts.to(dev), labels.to(dev)
+        if pts.shape[0] != folded.folds:
+            raise ValueError(f"expected the clouds of {folded.folds} folds, got {pts.shape[0]}")
+        draws = _stack([finetune_draws(g, base, pts.shape[1], pts.shape[2], npoints)
+                        for g in generators])
+        base.train()
+        loss, acc = batched(folded.params, folded.buffers, pts, labels, draws)
+        optimizer.zero_grad(set_to_none=True)
+        loss.sum().backward()
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach(), "acc": acc, "grad_norm": optimizer.last_grad_norm}
+
+    return step
+
+
+def make_fold_batched_eval_step(folded: FoldedModel, npoints: int = 1024,
+                                device="cuda") -> Callable:
+    """Build ``step(pts) -> logits``: ``make_eval_step``'s forward for each
+    fold of ``folded`` at once, under ``torch.func.vmap``; ``pts`` (F, B, N,
+    3) -> (F, B, classes)."""
+    dev = resolve_device(device)
+
+    def fold_logits(params, buffers, pts):
+        x = fps(pts, npoints) if pts.shape[1] > npoints else pts
+        return folded(params, buffers, x)
+
+    batched = vmap(fold_logits)
+
+    def step(pts: torch.Tensor) -> torch.Tensor:
+        with _eval_mode(folded.base):
+            return batched(folded.params, folded.buffers, pts.to(dev))
 
     return step
 

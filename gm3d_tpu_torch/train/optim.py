@@ -22,6 +22,12 @@ Two places where optax and torch differ, and what is done about them:
   - ``optax.clip_by_global_norm`` scales by ``max_norm / norm`` only when
     ``norm > max_norm``; ``torch.nn.utils.clip_grad_norm_`` scales by
     ``max_norm / (norm + 1e-6)``. ``clip_by_global_norm_`` is optax's rule.
+
+``build_legacy_adamw(..., fold_axis=True)`` is the same optimizer over
+parameters stacked along a leading fold axis (the few-shot folds trained
+together, ``train/finetune.py::FoldedModel``), as ``jax.vmap`` of the optax
+chain is: decay decided by each fold's shape, each fold clipped by its own
+norm (``FoldClippedAdamW``), the elementwise AdamW torch's own.
 """
 
 from __future__ import annotations
@@ -74,6 +80,39 @@ class ClippedAdamW(torch.optim.AdamW):
             self.last_grad_norm = clip_by_global_norm_(params, self.grad_clip)
         else:
             self.last_grad_norm = global_norm(p.grad for p in params if p.grad is not None)
+        return super().step(closure)
+
+
+def fold_global_norms(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``global_norm`` of each fold of tensors stacked along a leading fold
+    axis: (F,)."""
+    sq = [t.detach().to(torch.float32).pow(2).reshape(t.shape[0], -1).sum(1) for t in tensors]
+    return torch.stack(sq).sum(0).sqrt()
+
+
+class FoldClippedAdamW(torch.optim.AdamW):
+    """AdamW over parameters stacked along a leading fold axis, each fold's
+    slice of every gradient first clipped to ``grad_clip`` by that fold's own
+    global norm (optax's rule, as ``clip_by_global_norm_``; ``None`` does not
+    clip). AdamW is elementwise, so every fold's slice steps as its own
+    optimizer would. ``last_grad_norm`` holds the (F,) unclipped norms of the
+    latest step."""
+
+    def __init__(self, param_groups, grad_clip: Optional[float] = None, **kwargs):
+        super().__init__(param_groups, **kwargs)
+        self.grad_clip = grad_clip
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+    def step(self, closure=None):
+        grads = [p.grad for group in self.param_groups for p in group["params"]
+                 if p.grad is not None]
+        norm = fold_global_norms(grads)
+        if self.grad_clip is not None:
+            scale = torch.where(norm > self.grad_clip, self.grad_clip / norm,
+                                torch.ones_like(norm))
+            for g in grads:
+                g.mul_(scale.view(-1, *(1,) * (g.ndim - 1)).to(g))
+        self.last_grad_norm = norm
         return super().step(closure)
 
 
@@ -202,22 +241,35 @@ def build_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
 
 
 def build_legacy_adamw(named_params, learning_rate: float, weight_decay: float = 0.05,
-                       accum_steps: int = 1, grad_clip: Optional[float] = None):
+                       accum_steps: int = 1, grad_clip: Optional[float] = None,
+                       fold_axis: bool = False):
     """The legacy runners' AdamW, which made the published teacher: torch's
     default betas (0.9, 0.999), and no weight decay on a 1-d parameter, a
     ``.bias`` or ANY parameter whose name contains ``token`` (``mask_token``,
     ``cls_token``). The names are torch's; the JAX mask reads the same words
     in the flax paths. No gradient clip unless ``grad_clip`` (the legacy
     finetune runner's). Accumulation SUMS the micro-batches' gradients (plain
-    ``loss.backward()`` a micro-batch), and the clip is taken on that sum."""
+    ``loss.backward()`` a micro-batch), and the clip is taken on that sum.
+
+    ``fold_axis``: the parameters are F folds' stacked along axis 0; a
+    parameter's dimensions are counted without that axis, and the optimizer
+    is a ``FoldClippedAdamW`` (each fold clipped by its own norm; its
+    ``last_grad_norm`` is (F,))."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
-    decay = [p for n, p in named if p.ndim > 1 and "token" not in n]
-    no_decay = [p for n, p in named if not (p.ndim > 1 and "token" not in n)]
-    groups = [{"params": decay, "weight_decay": weight_decay},
-              {"params": no_decay, "weight_decay": 0.0}]
+    skip = 1 if fold_axis else 0
+
+    def decayed(name: str, p: torch.Tensor) -> bool:
+        return p.ndim - skip > 1 and "token" not in name
+
+    groups = [{"params": [p for n, p in named if decayed(n, p)], "weight_decay": weight_decay},
+              {"params": [p for n, p in named if not decayed(n, p)], "weight_decay": 0.0}]
     kwargs = dict(lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-    inner = (torch.optim.AdamW(groups, **kwargs) if grad_clip is None
-             else ClippedAdamW(groups, grad_clip=grad_clip, **kwargs))
+    if fold_axis:
+        inner = FoldClippedAdamW(groups, grad_clip=grad_clip, **kwargs)
+    elif grad_clip is None:
+        inner = torch.optim.AdamW(groups, **kwargs)
+    else:
+        inner = ClippedAdamW(groups, grad_clip=grad_clip, **kwargs)
     return accumulate(inner, accum_steps, scale=float(accum_steps))
 
 

@@ -221,13 +221,15 @@ def probe_features():
 
 
 def fewshot_folds():
-    """Two few-shot folds through the CLI's ``run_folds``."""
+    """Two few-shot folds through the CLI's ``run_folds``, each rank's folds
+    trained together (the default ``--parallel_folds``)."""
     cfg = cfg_from_yaml_file("configs/pointmae/fewshot.yaml")
     cfg["model"].update(SMALL)
     cfg["max_epoch"] = 1
     cfg["total_bs"] = 4
     args = argparse.Namespace(way=2, shot=2, folds=2, synthetic=True, val_freq=1,
-                              pretrained=None, torch_ckpt=False, bf16=False)
+                              pretrained=None, torch_ckpt=False, bf16=False,
+                              parallel_folds=True)
     return {"accs": fewshot_cli.run_folds(args, cfg, logging.getLogger("dp-test"),
                                           torch.device("cpu"))}
 
