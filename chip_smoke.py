@@ -208,6 +208,12 @@ Phases, each printing one JSON line when it ends:
               with ``--native_loader`` (the C++ loader built by ``g++`` here):
               records, the five kernels' launches, the epoch's clouds/s of each
               and each loader's alone over the same files
+  tracing     the span recorder (``utils/profiling.py``): 12 full-width GM3D
+              steps under ``torch.profiler``, each port span's start and end
+              against the profiler's own range of the same name (median and
+              worst offset, ns), the host us of a span off and under the
+              profiler and of a stage's CUDA event, the stage times, and a
+              ``start_trace`` trace holding its window and a second thread's span
 
 The pretrain CLI probes after each epoch (``--val_freq`` 1) in the phases
 ``pretrain_cli``, ``teacher`` and ``resume`` too; their launch counts include
@@ -279,8 +285,9 @@ from gm3d_tpu_torch.train.pretrain import (METRIC_KEYS, POINTMAE_METRIC_KEYS,  #
                                            make_gm3d_train_step)
 from gm3d_tpu_torch.train.schedules import (cosine_warmup_schedule, effective_lr,  # noqa: E402
                                             legacy_cosine_epoch_schedule)
-from gm3d_tpu_torch.utils.profiling import (device_busy_share, device_idle_gaps,  # noqa: E402
-                                            start_trace, stop_trace)
+from gm3d_tpu_torch.utils.profiling import (TRACE_WINDOW, clear,  # noqa: E402
+                                            device_busy_share, device_idle_gaps, recording,
+                                            span, spans, stage_ms, start_trace, stop_trace)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "pointmae", "finetune_modelnet.yaml")
@@ -3421,25 +3428,19 @@ def _launches_per_step(step, state, gen, steps: int) -> tuple[dict, list]:
 
 
 def _stage_ms(step, state, gen, runs: int = 3) -> dict:
-    """Median CUDA-event ms of each marked stage of ``runs`` steps, and of the step."""
-    stages, whole = {}, []
-    for _ in range(runs):
-        pts = _train_clouds(gen)
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-
-        def mark(stage):
-            events.append((stage, torch.cuda.Event(enable_timing=True)))
-            events[-1][1].record()
-
-        torch.cuda.synchronize()
-        events[0][1].record()
-        step(state, pts, gen, pp.SCALARS, mark=mark)
-        torch.cuda.synchronize()
-        whole.append(events[0][1].elapsed_time(events[-1][1]))
-        for (_, prev), (name, ev) in zip(events, events[1:]):
-            stages.setdefault(name, []).append(prev.elapsed_time(ev))
-    return {"step": statistics.median(whole),
-            **{k: statistics.median(v) for k, v in stages.items()}}
+    """Median stream ms of each stage of ``runs`` steps, and of the step (the
+    step's stage spans, ``utils/profiling.py::stage_ms``)."""
+    clear()
+    with recording():
+        for _ in range(runs):
+            pts = _train_clouds(gen)
+            torch.cuda.synchronize()
+            step(state, pts, gen, pp.SCALARS)
+            torch.cuda.synchronize()
+    per_step = stage_ms()
+    clear()
+    return {"step": statistics.median(sum(s.values()) for s in per_step),
+            **{k: statistics.median(s[k] for s in per_step) for k in per_step[0]}}
 
 
 def _clip_card_vs_cpu() -> dict:
@@ -3795,9 +3796,113 @@ def phase_native_loader(env: dict, tmp: str, seed: int) -> dict:
     return {"launches": res["runs"][1]["launches"]}
 
 
+TRACE_STEPS = 12  # 9 spans a GM3D step: 108 spans held against the profiler's events
+
+
+def _offsets_ns(records, events) -> list:
+    """Each port span's start and end against the profiler's own range of the
+    same name (the k-th of a name against the k-th), in ns."""
+    theirs: dict = {}
+    for name, start, dur in sorted(events, key=lambda e: e[1]):
+        theirs.setdefault(name, []).append((start, start + dur))
+    ours: dict = {}
+    for r in sorted(records, key=lambda r: r["start_ns"]):
+        ours.setdefault(r["name"], []).append(r)
+    check({k: len(v) for k, v in ours.items()} == {k: len(v) for k, v in theirs.items()},
+          "the profiler's ranges and the port's spans differ in number")
+    return [x for name, rs in ours.items() for r, (start, end) in zip(rs, theirs[name])
+            for x in (start - r["start_ns"], r["end_ns"] - end)]
+
+
+def _span_us(runs: int, name: str) -> float:
+    """Host us of one span entered and left, ``runs`` times in a loop."""
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        with span(name):
+            pass
+    return (time.perf_counter() - t0) / runs * 1e6
+
+
+def phase_tracing(env: dict, tmp: str) -> dict:
+    """The span recorder on the card: the port's spans against the
+    profiler's own events of the same names (the clock), what a span and a
+    stage's event cost on this host, the stage times of a traced step, and
+    ``start_trace``'s window and second-thread spans."""
+    import torch.autograd.profiler as autograd_profiler
+
+    check(hasattr(autograd_profiler, "_is_profiler_enabled"),
+          "this torch has no process-wide profiler flag: spans would never record")
+    state, teacher = pp.build_pretrain_setup(seed=0, device="cuda")
+    step = make_gm3d_train_step(state.student, teacher, state.optimizer)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    for _ in range(2):
+        state, _ = step(state, _train_clouds(gen), gen, pp.SCALARS)
+    torch.cuda.synchronize()
+    clear()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    for _ in range(TRACE_STEPS):
+        state, _ = step(state, _train_clouds(gen), gen, pp.SCALARS)
+    torch.cuda.synchronize()
+    prof.stop()
+    records = spans()
+    per_step = stage_ms()
+    clear()
+    names = {r["name"] for r in records}
+    events = [(e.name(), int(e.start_ns()), int(e.duration_ns()))
+              for e in prof.profiler.kineto_results.events()
+              if e.name() in names and e.device_type() == torch.autograd.DeviceType.CPU]
+    offsets = _offsets_ns(records, events)
+    absolute = sorted(abs(o) for o in offsets)
+    check(len(records) >= 100, f"{len(records)} spans in {TRACE_STEPS} steps")
+    # the cost of a span and of a stage's timing event on this host
+    off_us = _span_us(100_000, "off")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        on_us = _span_us(10_000, "on")
+    clear()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        torch.cuda.Event(enable_timing=True).record()
+    event_us = (time.perf_counter() - t0) / 10_000 * 1e6
+    torch.cuda.synchronize()
+    # start_trace: its window range and a second thread's span in the written trace
+    def side():
+        with span("side"):
+            torch.ones(4, device=DEV).sum()
+
+    tr = start_trace(tmp)
+    state, _ = step(state, _train_clouds(gen), gen, pp.SCALARS)
+    thread = threading.Thread(target=side, name="side")
+    thread.start()
+    thread.join(timeout=60)
+    path = stop_trace(tr, tmp)
+    clear()
+    with open(path) as f:
+        written = {e.get("name") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "user_annotation"}
+    check({"side", "step", "step.backward", TRACE_WINDOW} <= written,
+          f"the written trace lacks spans: {sorted(written)[:20]}")
+    res = {"phase": "tracing", "spans": len(records), "steps": TRACE_STEPS,
+           "clock_offset_ns": {"median_abs": statistics.median(absolute),
+                               "max_abs": absolute[-1],
+                               "median_signed": statistics.median(offsets)},
+           "span_us": {"off": off_us, "on_under_profiler": on_us},
+           "stage_event_us": event_us,
+           "stage_ms_median": {k: statistics.median(s[k] for s in per_step)
+                               for k in per_step[0]},
+           "step_ms_median": statistics.median(sum(s.values()) for s in per_step),
+           "written_trace": {"busy_share": device_busy_share(path),
+                             "longest_idle_ms_at_ms": device_idle_gaps(path, top=3)},
+           "gpu": env["gpu"]}
+    emit(res)
+    return res
+
+
 PHASES = ("env", "build", "kernels", "serve", "throughput", "train", "pretrain_cli", "teacher",
           "resume", "probe", "step_options", "finetune", "segmentation", "fewshot", "m2ae",
-          "evaluate", "clip", "emd", "ddp", "native_loader")
+          "evaluate", "clip", "emd", "ddp", "native_loader", "tracing")
 
 
 def main() -> None:
@@ -3858,6 +3963,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         parallel = phase_ddp(env, tmp, cli_args.seed) if "ddp" in phases else None
         native = phase_native_loader(env, tmp, cli_args.seed) if "native_loader" in phases else None
+    with tempfile.TemporaryDirectory() as tmp:
+        if "tracing" in phases:
+            phase_tracing(env, tmp)
     if tuple(phases) != PHASES:
         raise SystemExit(f"partial run ({phases}): no result line")
     for kern in timed:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gm3d_tpu_torch.utils.device import resolve_device
+from gm3d_tpu_torch.utils.profiling import span
 
 
 class device_prefetch:
@@ -73,18 +74,31 @@ class device_prefetch:
             t.record_stream(consumer)
         return batch
 
-    def __iter__(self) -> Iterator:
-        queue = []
-        it = iter(self.loader)
-        for batch in it:
+    def _pull(self, it, queue: list) -> bool:
+        """Take the loader's next batch and start its copy; False at the end."""
+        with span("data.loader"):
+            batch = next(it, None)
+        if batch is None:
+            return False
+        with span("data.to_device"):
             queue.append((self._put(batch), self._loader_state()))
-            if len(queue) >= self.size:
-                break
-        while queue:
-            out, state_after = queue.pop(0)
-            out = self._hand_over(out)
-            nxt = next(it, None)
-            if nxt is not None:
-                queue.append((self._put(nxt), self._loader_state()))
-            self._yielded_state = state_after
+        return True
+
+    def __iter__(self) -> Iterator:
+        it = iter(self.loader)
+        queue = None
+        while True:
+            # the consumer's wait for each batch (the spans record only while
+            # a profiler runs)
+            with span("data.next"):
+                if queue is None:
+                    queue = []
+                    while self._pull(it, queue) and len(queue) < self.size:
+                        pass
+                if not queue:
+                    return
+                out, state_after = queue.pop(0)
+                out = self._hand_over(out)
+                self._pull(it, queue)
+                self._yielded_state = state_after
             yield out

@@ -1,4 +1,5 @@
-"""Stage times of one GM3D pretrain step on the GPU, by CUDA events.
+"""Stage times of one GM3D pretrain step on the GPU, by the step's own
+stage spans (``utils/profiling.py::stage_ms``: CUDA events at each stage boundary).
 
     python3 -m gm3d_tpu_torch.scripts.profile_pretrain [--batch 256] [--steps 5]
         [--plain] [--depth 12]
@@ -43,6 +44,7 @@ from gm3d_tpu_torch.train.optim import build_adamw, build_gm3d_shared_optimizer
 from gm3d_tpu_torch.train.pretrain import make_gm3d_train_step, make_m2ae_gm3d_train_step
 from gm3d_tpu_torch.train.state import TrainState, create_train_state
 from gm3d_tpu_torch.utils.device import resolve_device
+from gm3d_tpu_torch.utils.profiling import clear, recording, stage_ms
 
 STAGES = ("augment_group", "patch_embed", "ema_forward_mask", "student_forward", "teacher",
           "losses", "backward", "optimizer_ema")
@@ -129,41 +131,34 @@ def profile(state: TrainState, teacher, batch: int, npoints: int, steps: int, wa
                                     device=dev)
         stages = STAGES
     gen = torch.Generator(device=dev).manual_seed(seed)
-    per_stage = {name: [] for name in stages}
-    whole_ms, wall_ms = [], []
+    wall_ms = []
     launches: Optional[dict] = None
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(warmup + steps):
-        pts = torch.randn((batch, npoints, 3), generator=gen, device=dev) * 0.5
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-
-        def mark(stage: str) -> None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((stage, ev))
-
-        reset_launches()
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        events[0][1].record()
-        state, metrics = step(state, pts, gen, SCALARS, mark=mark)
-        torch.cuda.synchronize(dev)
-        wall = (time.perf_counter() - t0) * 1e3
-        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
-            raise RuntimeError(f"non-finite metrics at step {i}: {metrics}")
-        if i < warmup:
-            continue
-        launches = read_launches()
-        wall_ms.append(wall)
-        whole_ms.append(events[0][1].elapsed_time(events[-1][1]))
-        for (_, prev), (stage, ev) in zip(events, events[1:]):
-            per_stage[stage].append(prev.elapsed_time(ev))
+    with recording():
+        for i in range(warmup + steps):
+            if i == warmup:
+                clear()  # the stage times of the timed steps only
+            pts = torch.randn((batch, npoints, 3), generator=gen, device=dev) * 0.5
+            reset_launches()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, pts, gen, SCALARS)
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+                raise RuntimeError(f"non-finite metrics at step {i}: {metrics}")
+            if i >= warmup:
+                launches = read_launches()
+                wall_ms.append(wall)
+    per_step = stage_ms()
+    clear()
+    whole_ms = [sum(s.values()) for s in per_step]
     step_ms = statistics.median(whole_ms)
     return {
         "family": family,
         "route": "plain modules" if plain else "kernels",
         "batch": batch, "npoints": npoints, "steps": steps,
-        "stage_ms": {k: statistics.median(v) for k, v in per_stage.items()},
+        "stage_ms": {k: statistics.median(s[k] for s in per_step) for k in stages},
         "step_ms_events": step_ms,
         "step_ms_wall": statistics.median(wall_ms),
         "clouds_per_s": batch / statistics.median(wall_ms) * 1e3,

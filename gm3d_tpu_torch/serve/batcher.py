@@ -23,17 +23,20 @@ import time
 import numpy as np
 
 from gm3d_tpu_torch.serve.runner import ServingModel, check_points
+from gm3d_tpu_torch.utils.profiling import current_span, recording_on, span
 
 
 class _Item:
-    __slots__ = ("cloud", "label", "event", "result", "error")
+    __slots__ = ("cloud", "label", "event", "result", "error", "enqueued", "waiter")
 
-    def __init__(self, cloud: np.ndarray, label=None):
+    def __init__(self, cloud: np.ndarray, label=None, waiter=None):
         self.cloud = cloud
         self.label = label
         self.event = threading.Event()
         self.result = None
         self.error: Exception | None = None
+        self.enqueued = 0.0  # perf_counter seconds, set when it is queued
+        self.waiter = waiter  # the id of the span its caller waits in, while recording
 
 
 class DynamicBatcher:
@@ -59,9 +62,11 @@ class DynamicBatcher:
         # request that passed the check could enqueue AFTER the shutdown
         # sentinel, and its caller would block on event.wait() forever
         self._lock = threading.Lock()
-        # ops counters (exposed on /info): device dispatches vs clouds served
+        # ops counters (exposed on /info): device dispatches vs clouds served,
+        # and the served clouds' summed wait from their enqueue to their call
         self.device_calls = 0
         self.clouds_served = 0
+        self.queue_wait_s = 0.0
         self._thread = threading.Thread(
             target=self._loop, name="gm3d-batcher", daemon=True)
         self._thread.start()
@@ -71,14 +76,17 @@ class DynamicBatcher:
     def predict(self, points: np.ndarray, cls_label=None) -> np.ndarray:
         points, single = check_points(points, self.model.npoints)
         labels = self.model.check_request_labels(cls_label, points.shape[0], single)
+        waiter = current_span() if recording_on() else None
         if labels is None:
-            items = [_Item(c) for c in points]
+            items = [_Item(c, None, waiter) for c in points]
         else:
-            items = [_Item(c, lab) for c, lab in zip(points, labels)]
+            items = [_Item(c, lab, waiter) for c, lab in zip(points, labels)]
         with self._lock:
             if self._closed:
                 raise RuntimeError("DynamicBatcher is closed")
+            now = time.perf_counter()
             for it in items:
+                it.enqueued = now
                 self._q.put(it)
         for it in items:
             it.event.wait()
@@ -141,8 +149,16 @@ class DynamicBatcher:
             clouds = np.stack([it.cloud for it in batch])
             labels = (np.stack([it.label for it in batch])
                       if self.model.needs_labels else None)
+            start = time.perf_counter()
+            waited = sum(start - it.enqueued for it in batch)
+            # the call's cause on other threads: the spans its callers wait in
+            attrs = ({"clouds": len(batch), "queue_wait_s": waited,
+                      "waits": list(dict.fromkeys(it.waiter for it in batch
+                                                  if it.waiter is not None))}
+                     if recording_on() else {})
             try:
-                out = self.model.predict(clouds, labels)
+                with span("batcher.call", **attrs):
+                    out = self.model.predict(clouds, labels)
             except Exception as e:  # propagate to every caller in the batch
                 for it in batch:
                     it.error = e
@@ -150,6 +166,7 @@ class DynamicBatcher:
                 continue
             self.device_calls += -(-len(batch) // self.model.batch)
             self.clouds_served += len(batch)
+            self.queue_wait_s += waited
             for it, o in zip(batch, out):
                 it.result = o
                 it.event.set()

@@ -24,6 +24,7 @@ import torch
 
 from gm3d_tpu_torch.serve.export import load_artifact
 from gm3d_tpu_torch.utils.device import resolve_device
+from gm3d_tpu_torch.utils.profiling import span
 
 
 def check_points(points: np.ndarray, npoints: int):
@@ -150,19 +151,23 @@ class ServingModel:
         for start in range(0, b, self.batch):
             chunk = points[start:start + self.batch]
             n = chunk.shape[0]
-            if n < self.batch:
-                pad = np.zeros((self.batch - n,) + chunk.shape[1:], np.float32)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            extra = ()
-            if labels is not None:
-                lab = labels[start:start + self.batch]
-                extra = (np.concatenate([lab, np.zeros(self.batch - n, lab.dtype)]),)
+            with span("runner.pad"):
+                if n < self.batch:
+                    pad = np.zeros((self.batch - n,) + chunk.shape[1:], np.float32)
+                    chunk = np.concatenate([chunk, pad], axis=0)
+                extra = ()
+                if labels is not None:
+                    lab = labels[start:start + self.batch]
+                    extra = (np.concatenate([lab, np.zeros(self.batch - n, lab.dtype)]),)
             i = next(self._rr) % len(self._fns)
             dev = self.devices[i]
-            args = [torch.from_numpy(np.ascontiguousarray(
-                chunk, dtype=self.manifest["input_dtype"])).to(dev)]
-            args += [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in extra]
+            with span("runner.copy_in"):
+                args = [torch.from_numpy(np.ascontiguousarray(
+                    chunk, dtype=self.manifest["input_dtype"])).to(dev)]
+                args += [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in extra]
             # enqueued on its device; read back once every chunk is in flight
-            outs.append(self._fns[i].device_call(*args)[:n])
-        out = np.concatenate([o.cpu().numpy() for o in outs], axis=0)
+            with span("runner.launch"):
+                outs.append(self._fns[i].device_call(*args)[:n])
+        with span("runner.read_back"):
+            out = np.concatenate([o.cpu().numpy() for o in outs], axis=0)
         return out[0] if single else out

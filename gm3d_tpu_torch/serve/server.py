@@ -39,6 +39,7 @@ from gm3d_tpu_torch.serve.batcher import DynamicBatcher
 from gm3d_tpu_torch.serve.runner import ServingModel
 from gm3d_tpu_torch.train.segmentation import category_restricted_argmax
 from gm3d_tpu_torch.utils.device import resolve_device
+from gm3d_tpu_torch.utils.profiling import span
 
 
 def _seg_labels(logits: np.ndarray, cls_label, manifest: dict) -> np.ndarray:
@@ -79,6 +80,7 @@ def _make_handler(model: ServingModel, backend):
                         "max_wait_ms": backend.max_wait * 1000.0,
                         "device_calls": backend.device_calls,
                         "clouds_served": backend.clouds_served,
+                        "queue_wait_s": backend.queue_wait_s,
                     }
                 self._send(200, info)
             else:
@@ -88,45 +90,52 @@ def _make_handler(model: ServingModel, backend):
             if self.path != "/predict":
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
+            with span("serve.request"):
+                self._predict()
+
+        def _predict(self):
             cls_label = None
             return_logits = True
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                blob = self.rfile.read(length)
-                ctype = self.headers.get("Content-Type", "application/json")
-                if ctype.startswith("application/octet-stream"):
-                    points = np.load(io.BytesIO(blob), allow_pickle=False)
-                else:
-                    body = json.loads(blob)
-                    if not isinstance(body, dict) or "points" not in body:
-                        raise ValueError(
-                            'body must be a JSON object {"points": [...]}')
-                    points = np.asarray(body["points"], np.float32)
-                    if "cls_label" in body:
-                        cls_label = np.asarray(body["cls_label"])
-                    if model.manifest.get("mode") == "segmentation":
-                        # per-point logits are large; opt-in only
-                        return_logits = bool(body.get("return_logits", False))
+                with span("serve.parse"):
+                    length = int(self.headers.get("Content-Length", 0))
+                    blob = self.rfile.read(length)
+                    ctype = self.headers.get("Content-Type", "application/json")
+                    if ctype.startswith("application/octet-stream"):
+                        points = np.load(io.BytesIO(blob), allow_pickle=False)
+                    else:
+                        body = json.loads(blob)
+                        if not isinstance(body, dict) or "points" not in body:
+                            raise ValueError(
+                                'body must be a JSON object {"points": [...]}')
+                        points = np.asarray(body["points"], np.float32)
+                        if "cls_label" in body:
+                            cls_label = np.asarray(body["cls_label"])
+                        if model.manifest.get("mode") == "segmentation":
+                            # per-point logits are large; opt-in only
+                            return_logits = bool(body.get("return_logits", False))
             except (ValueError, KeyError, TypeError, EOFError) as e:
                 # json.JSONDecodeError is a ValueError; TypeError covers
                 # ragged nested lists np.asarray rejects
                 self._send(400, {"error": str(e)})
                 return
             try:
-                out = backend.predict(points, cls_label)
+                with span("serve.wait"):
+                    out = backend.predict(points, cls_label)
             except ValueError as e:  # shape contract violations -> client error
                 self._send(400, {"error": str(e)})
                 return
             except Exception as e:  # device/runtime failure -> server error
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            payload = {"outputs": out.tolist()} if return_logits else {}
-            mode = model.manifest.get("mode")
-            if mode == "classifier":
-                payload["label"] = np.argmax(out, axis=-1).tolist()
-            elif mode == "segmentation":
-                payload["label"] = _seg_labels(out, cls_label, model.manifest).tolist()
-            self._send(200, payload)
+            with span("serve.encode"):
+                payload = {"outputs": out.tolist()} if return_logits else {}
+                mode = model.manifest.get("mode")
+                if mode == "classifier":
+                    payload["label"] = np.argmax(out, axis=-1).tolist()
+                elif mode == "segmentation":
+                    payload["label"] = _seg_labels(out, cls_label, model.manifest).tolist()
+                self._send(200, payload)
 
     return Handler
 

@@ -62,6 +62,7 @@ from gm3d_tpu_torch.train import losses
 from gm3d_tpu_torch.train.optim import global_norm
 from gm3d_tpu_torch.train.state import TrainState, ema_update
 from gm3d_tpu_torch.utils.device import resolve_device
+from gm3d_tpu_torch.utils.profiling import step_span
 
 METRIC_KEYS = ("loss", "loss_recon", "loss_mse", "loss_chfr", "loss_learn", "grad_norm")
 POINTMAE_METRIC_KEYS = ("loss", "grad_norm")
@@ -212,7 +213,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                          remat_student: bool = False, quantize_ema: bool = False,
                          use_fused_attention: bool = True,
                          device="cuda") -> Callable:
-    """Build ``step(state, pts, generator, scalars, draws=None, mark=None)``.
+    """Build ``step(state, pts, generator, scalars, draws=None)``.
 
     ``student`` and ``optimizer`` must be the ones in the ``TrainState`` the
     step is called with; ``teacher`` is frozen (eval mode, no gradient).
@@ -248,8 +249,12 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
     0-d tensors on the device (no host synchronisation inside the step);
     ``grad_norm`` is this call's gradient norm, not the accumulation's.
     ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and ``noise`` (B, G).
-    ``mark(stage)``, if given, is called each time a stage of the step has
-    been enqueued (``scripts/profile_pretrain.py`` records CUDA events there).
+    The step is the span ``step``, its stages the spans ``step.augment_group``,
+    ``.patch_embed``, ``.ema_forward_mask``, ``.clip_targets`` (clip),
+    ``.student_forward``, ``.teacher`` (dino), ``.losses``, ``.backward`` and
+    ``.optimizer_ema``, each from its ``mark`` to the next (``utils/profiling.py``:
+    recorded only while a profiler or ``recording()`` is on, the stream's time
+    of each stage in ``stage_ms()``).
     """
     if distill_mode not in ("dino", "ema", "none", "clip"):
         raise ValueError(f"distill_mode must be 'dino', 'ema', 'none' or 'clip', "
@@ -294,13 +299,16 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
 
     def step(state: TrainState, pts: torch.Tensor, generator: Optional[torch.Generator],
              scalars: Mapping[str, float],
-             draws: Optional[Mapping[str, torch.Tensor]] = None,
-             mark: Optional[Callable[[str], None]] = None
+             draws: Optional[Mapping[str, torch.Tensor]] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with step_span(dev) as st:
+            state, metrics = _step(st.mark, state, pts, generator, scalars, draws or {})
+        return state, mean_over_ranks(metrics)
+
+    def _step(mark, state, pts, generator, scalars, draws):
         if state.student is not student or state.optimizer is not optimizer:
             raise ValueError("the step was built for another student or optimizer")
-        draws = draws or {}
-        mark = mark or (lambda stage: None)
+        mark("augment_group")
         pts = pts.to(dev)
         ema: nn.Module = state.ema
         with torch.no_grad():
@@ -309,7 +317,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             batch = samples.shape[0]
             # ONE deterministic grouping, shared by EMA / student / teacher
             grouped = group_points(samples, student.num_group, student.group_size)
-            mark("augment_group")
+            mark("patch_embed")
 
             ema_tokens = teacher_tokens = None
             if use_fused_embed:
@@ -319,7 +327,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                     teacher_tokens = fused_patch_embed(
                         grouped.neighborhood, params_from_module(teacher.MAE_encoder.encoder))
 
-            mark("patch_embed")
+            mark("ema_forward_mask")
 
             # EMA forward on the unmasked cloud (eval mode). loss_pred_only:
             # this pass exists to feed the mask (and, in 'ema' mode, the
@@ -330,11 +338,11 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                                grouped=grouped, tokens=ema_tokens, loss_pred_only=trim_ema)
             mask = geometric_mask(generator, outs_ema["loss_pred"], num_mask,
                                   scalars["keep_ratio"], noise=draws.get("noise"))
-            mark("ema_forward_mask")
+            mark("clip_targets" if use_clip else "student_forward")
             if use_clip:
                 # the frozen tower over renders of the full cloud: (B, G, D)
                 clip_targets = clip_group_targets(teacher, samples, grouped.center)
-                mark("clip_targets")
+                mark("student_forward")
 
         student.train()
         remat = _Remat(student, generator, use_fused_attention) if remat_student else None
@@ -345,13 +353,13 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
 
         with fused_attention_scope(use_fused_attention):
             outs = remat(student_forward) if remat is not None else student_forward()
-            mark("student_forward")
+            mark("teacher" if use_distill else "losses")
             if use_sep_distill:
                 with torch.no_grad():
                     teacher_feats = teacher.encode_features(
                         samples, grouped=grouped if same_grouping else None,
                         tokens=teacher_tokens if same_grouping else None)
-                mark("teacher")
+                mark("losses")
                 loss_outs = losses.gm3d_separated_loss(
                     outs["pix_pred"][:, -num_mask:], teacher_feats, outs["mask_idx"],
                     outs["rebuild_points"][:, -num_mask:], outs["neighborhood"])
@@ -359,7 +367,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
                 teacher_feats, point_target, point_reco, pred_masked = teacher_replay(
                     teacher, samples, outs, num_mask, grouped if same_grouping else None,
                     teacher_tokens, use_fused_attention)
-                mark("teacher")
+                mark("losses")
                 loss_outs = losses.gm3d_feature_loss(
                     pred_masked, teacher_feats, outs["mask_idx"], point_target, point_reco)
             elif use_ema_feats or use_clip:
@@ -385,14 +393,14 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             else:
                 loss_learn = losses.mse_learning_loss(loss_pred_masked, matrix)
             total = loss + loss_learn
-            mark("losses")
+            mark("backward")
             # every parameter's, also those no optimizer owns (grad_norm reads them)
             student.zero_grad(set_to_none=True)
             total.backward()
             if remat is not None:
                 remat.restore()
             reduce_gradients(optimizer, trainable)
-            mark("backward")
+            mark("optimizer_ema")
 
         # the norm over every trainable parameter, a missing gradient as zero
         grad_norm = global_norm(p.grad for p in trainable if p.grad is not None)
@@ -402,7 +410,6 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
         if (state.step + 1) % accum_steps == 0:
             ema_update(ema, student, scalars["ema_decay"])
         state.step += 1
-        mark("optimizer_ema")
         metrics = {
             "loss": total.detach(),
             "loss_recon": loss.detach(),
@@ -412,7 +419,7 @@ def make_gm3d_train_step(student: GM3DStudent, teacher: Optional[PointMAE],
             "grad_norm": grad_norm,
         }
         step.last_mask = mask
-        return state, mean_over_ranks(metrics)
+        return state, metrics
 
     step.num_mask = num_mask
     step.last_mask = None
@@ -517,7 +524,7 @@ def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0
                               relative: bool = True, augment: bool = True,
                               use_fused_attention: bool = False,
                               device="cuda") -> Callable:
-    """Build ``step(state, pts, generator, scalars, draws=None, mark=None)``:
+    """Build ``step(state, pts, generator, scalars, draws=None)``:
     Point-M2AE with GM3D's geometric masking. ``state`` must hold an EMA copy.
 
       1. augment, ONE hierarchy shared by the two passes;
@@ -539,8 +546,10 @@ def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0
     8 (the hierarchy 3, the EMA's k = 1 maps 2, the student's 3); with the
     fused attention, ``attention_fwd`` 2 and ``attention_bwd`` 1 a block of
     ``dec_stage0``. ``draws`` may hold ``scale``, ``shift`` (B, 1, 3) and
-    ``noise`` (B, G_last); ``mark(stage)``, if given, is called after each
-    stage is enqueued. Returns ``(state, {"loss", "loss_chfr", "loss_learn",
+    ``noise`` (B, G_last). The step is the span ``step``, its stages the spans
+    ``step.augment_hierarchy``, ``.ema_forward_mask``, ``.student_forward``,
+    ``.losses``, ``.backward`` and ``.optimizer_ema`` (``utils/profiling.py``).
+    Returns ``(state, {"loss", "loss_chfr", "loss_learn",
     "grad_norm"})``, 0-d tensors on the device."""
     dev = resolve_device(device)
     coarse_groups = model.num_groups[-1]
@@ -549,33 +558,36 @@ def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0
 
     def step(state: TrainState, pts: torch.Tensor, generator: Optional[torch.Generator],
              scalars: Mapping[str, float],
-             draws: Optional[Mapping[str, torch.Tensor]] = None,
-             mark: Optional[Callable[[str], None]] = None
+             draws: Optional[Mapping[str, torch.Tensor]] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with step_span(dev) as st:
+            state, metrics = _step(st.mark, state, pts, generator, scalars, draws or {})
+        return state, mean_over_ranks(metrics)
+
+    def _step(mark, state, pts, generator, scalars, draws):
         if state.student is not model or state.optimizer is not optimizer:
             raise ValueError("the step was built for another model or optimizer")
         if state.ema is None:
             raise ValueError("the M2AE + GM3D step needs a state with an EMA copy")
-        draws = draws or {}
-        mark = mark or (lambda stage: None)
+        mark("augment_hierarchy")
         pts = pts.to(dev)
         with torch.no_grad():
             samples = (scale_and_translate(generator, pts, scale=draws.get("scale"),
                                            shift=draws.get("shift")) if augment else pts)
             batch = samples.shape[0]
             hierarchy = build_hierarchy(samples, model.num_groups, model.group_sizes)
-            mark("augment_hierarchy")
+            mark("ema_forward_mask")
             all_vis = torch.ones((batch, coarse_groups), dtype=torch.bool, device=dev)
             with fused_attention_scope(use_fused_attention):
                 outs_ema = state.ema(samples, all_vis, hierarchy, loss_pred_only=True)
             coarse_vis = ~geometric_mask(generator, outs_ema["loss_pred"], num_mask,
                                          scalars["keep_ratio"], noise=draws.get("noise"))
-            mark("ema_forward_mask")
+            mark("student_forward")
 
         model.train()
         with fused_attention_scope(use_fused_attention):
             outs = model(samples, coarse_vis, hierarchy, generator)
-            mark("student_forward")
+            mark("losses")
             loss, matrix = m2ae_losses(model, outs)
             # the masked coarsest slots in index order (masked = False sorts first)
             mask_idx = torch.argsort(coarse_vis.to(torch.int32), dim=-1,
@@ -585,19 +597,17 @@ def make_m2ae_gm3d_train_step(model: PointM2AE, optimizer, mask_ratio: float = 0
             loss_learn = (losses.relative_learning_loss(lp, mt) if relative
                           else losses.mse_learning_loss(lp, mt))
             total = loss + loss_learn
-            mark("losses")
+            mark("backward")
             optimizer.zero_grad(set_to_none=True)
             total.backward()
             reduce_gradients(optimizer, params)
-            mark("backward")
+            mark("optimizer_ema")
         grad_norm = global_norm(p.grad for p in params if p.grad is not None)
         _step_all(optimizer, params)
         ema_update(state.ema, model, scalars["ema_decay"])
         state.step += 1
-        mark("optimizer_ema")
-        return state, mean_over_ranks({"loss": total.detach(), "loss_chfr": loss.detach(),
-                                       "loss_learn": loss_learn.detach(),
-                                       "grad_norm": grad_norm})
+        return state, {"loss": total.detach(), "loss_chfr": loss.detach(),
+                       "loss_learn": loss_learn.detach(), "grad_norm": grad_norm}
 
     step.num_mask = num_mask
     return step

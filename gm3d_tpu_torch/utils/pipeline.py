@@ -24,6 +24,8 @@ from __future__ import annotations
 
 from typing import Callable
 
+from gm3d_tpu_torch.utils.profiling import span
+
 
 class DeferredMetrics:
     """Queue device-metric payloads; drain FIFO once more than ``depth`` are
@@ -38,10 +40,15 @@ class DeferredMetrics:
     def push(self, *item) -> None:
         self._q.append(item)
         while len(self._q) > self._depth:
-            self._drain(*self._q.pop(0))
+            self._drain_one()
 
     def flush(self) -> None:
         """Drain everything (epoch end — meters must be complete before the
         epoch stats are computed)."""
         while self._q:
+            self._drain_one()
+
+    def _drain_one(self) -> None:
+        # the span names the host's wait for the device in a trace
+        with span("pipeline.drain"):
             self._drain(*self._q.pop(0))

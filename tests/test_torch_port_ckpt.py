@@ -36,9 +36,10 @@ from gm3d_tpu_torch.train.pretrain import make_gm3d_train_step
 from gm3d_tpu_torch.train.state import create_train_state
 from gm3d_tpu_torch.utils.preempt import PreemptionGuard
 from gm3d_tpu_torch.utils.profiling import (
-    StepTimer,
+    TRACE_WINDOW,
     device_busy_share,
     device_idle_gaps,
+    span,
     trace,
 )
 
@@ -259,41 +260,57 @@ def test_preemption_guard_saves_and_exits_0_on_sigterm():
 
 def test_device_busy_share_of_a_hand_written_trace(tmp_path):
     events = [
+        {"ph": "X", "cat": "user_annotation", "name": TRACE_WINDOW, "ts": 90.0, "dur": 70.0},
         {"ph": "X", "cat": "kernel", "name": "a", "ts": 100.0, "dur": 10.0},
         {"ph": "X", "cat": "kernel", "name": "b", "ts": 105.0, "dur": 10.0},  # overlaps a
         {"ph": "X", "cat": "gpu_memcpy", "name": "HtoD", "ts": 120.0, "dur": 10.0},
         {"ph": "X", "cat": "kernel", "name": "c", "ts": 122.0, "dur": 2.0},  # inside the copy
-        {"ph": "X", "cat": "kernel", "name": "d", "ts": 140.0, "dur": 10.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "set", "ts": 140.0, "dur": 10.0},
+        {"ph": "X", "cat": "kernel", "name": "e", "ts": 155.0, "dur": 20.0},  # past the window
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0, "dur": 1000.0},
         {"ph": "i", "cat": "kernel", "name": "marker", "ts": 500.0},
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    # busy 15 + 10 + 10 over the window 100 .. 150
-    assert device_busy_share(str(path)) == pytest.approx(35.0 / 50.0, abs=1e-12)
-    # idle 115 .. 120 and 130 .. 140, in ms from the window's start
-    assert device_idle_gaps(str(path)) == [(0.03, 0.01), (0.015, 0.005)]
+    # busy 15 + 10 + 10 + 5 over the window 90 .. 160, its idle edges included
+    assert device_busy_share(str(path)) == pytest.approx(40.0 / 70.0, abs=1e-12)
+    # idle 90 .. 100, 115 .. 120, 130 .. 140, 150 .. 155, in ms from the window's start
+    assert device_idle_gaps(str(path)) == [(0.0, 0.01), (0.04, 0.01), (0.025, 0.005),
+                                           (0.06, 0.005)]
     path.write_text(json.dumps(events[:1]))
-    assert device_busy_share(str(path)) == 1.0
-    path.write_text(json.dumps({"traceEvents": events[5:]}))
-    with pytest.raises(ValueError, match="no CUDA kernel"):
+    assert device_busy_share(str(path)) == 0.0
+    path.write_text(json.dumps({"traceEvents": events[1:]}))
+    with pytest.raises(ValueError, match="no gm3d.trace_window"):
         device_busy_share(str(path))
+
+
+def _side_span():
+    with span("side"):
+        torch.ones(4).sum()
 
 
 def test_trace_writes_a_chrome_trace_and_the_step_timer_counts(tmp_path):
     with trace(None):
         pass
     assert not list(tmp_path.iterdir())
-    timer = StepTimer()
     with trace(str(tmp_path / "prof")):
         for _ in range(2):
-            x = torch.randn(32, 32) @ torch.randn(32, 32)
-            timer.data_ready()
-            timer.step_done(x)
+            with span("step"):
+                torch.randn(32, 32) @ torch.randn(32, 32)
+        side = threading.Thread(target=_side_span, name="side")
+        side.start()
+        side.join(timeout=60)
+    assert not side.is_alive()
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("cat") == "cpu_op" for e in events)
-    summary = timer.summary()
-    assert summary["steps"] == 2 and summary["iter_time_avg"] >= summary["data_time_avg"] > 0
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    window = [e for e in ranges if e["name"] == TRACE_WINDOW]
+    steps = [e for e in ranges if e["name"] == "step"]
+    assert len(window) == 1 and len(steps) == 2
+    lo, hi = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in steps)
+    # every thread's spans: the profiler records them all
+    assert any(e["name"] == "side" for e in ranges)
+    assert any(e.get("cat") == "cpu_op" and e["name"] == "aten::mm" for e in events)
 
 
 # ---------------------------------------------------------------------------

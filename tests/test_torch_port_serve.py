@@ -43,6 +43,7 @@ from gm3d_tpu_torch.models import GM3DStudent
 from gm3d_tpu_torch.serve import (DynamicBatcher, ServingModel, build_feature_fn, export_forward,
                                   load_artifact, save_artifact)
 from gm3d_tpu_torch.serve.server import make_server
+from gm3d_tpu_torch.utils import profiling
 
 NPOINTS, BATCH, CLS = 128, 4, 7
 SMALL = dict(trans_dim=48, depth=2, num_heads=2, group_size=8, num_group=16, encoder_dims=48)
@@ -268,7 +269,8 @@ def test_http_health_and_info(http):
     status, info = _request(base + "/info")
     assert status == 200 and info["input_shape"] == [BATCH, NPOINTS, 3]
     assert info["platforms"] == ["cpu"] and info["format_version"] == 2
-    assert set(info["dynamic_batching"]) == {"max_wait_ms", "device_calls", "clouds_served"}
+    assert set(info["dynamic_batching"]) == {"max_wait_ms", "device_calls", "clouds_served",
+                                             "queue_wait_s"}
     assert _request(base + "/nope")[0] == 404
 
 
@@ -320,6 +322,58 @@ def test_http_device_failure_is_500(classifier_artifact):
         server.shutdown()
         server.server_close()
         thread.join()
+
+
+def test_http_spans_tie_each_batcher_call_to_its_requests(classifier_artifact):
+    """Under a profiler, two concurrent requests: each request's spans, and
+    each batcher call listing the requests' waits it served (on another
+    thread); the queue's wait grows on /info."""
+    server = make_server(classifier_artifact[0], port=0, batch_wait_ms=300.0, device="cpu")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    results = [None, None]
+
+    def post(i):
+        body = json.dumps({"points": _clouds(20 + i, 1 + i).tolist()}).encode()
+        results[i] = _request(base + "/predict", body)
+
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        before = _request(base + "/info")[1]["dynamic_batching"]
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            posts = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+            for t in posts:
+                t.start()
+            for t in posts:
+                t.join(timeout=120)
+        after = _request(base + "/info")[1]["dynamic_batching"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    assert not any(t.is_alive() for t in posts)
+    assert [r[0] for r in results] == [200, 200]
+    records = profiling.spans()
+    profiling.clear()
+    requests = {r["id"] for r in records if r["name"] == "serve.request"}
+    assert len(requests) == 2
+    for rid in requests:
+        assert sorted(r["name"] for r in records if r["parent"] == rid) == [
+            "serve.encode", "serve.parse", "serve.wait"]
+    waits = {r["id"] for r in records if r["name"] == "serve.wait"}
+    calls = [r for r in records if r["name"] == "batcher.call"]
+    assert calls and all(c["attrs"]["waits"] for c in calls)
+    assert set().union(*(c["attrs"]["waits"] for c in calls)) == waits
+    assert sum(c["attrs"]["clouds"] for c in calls) == 3
+    assert all(c["attrs"]["queue_wait_s"] > 0 and c["thread"] == "gm3d-batcher" for c in calls)
+    call_ids = {c["id"] for c in calls}
+    for name in ("runner.pad", "runner.copy_in", "runner.launch", "runner.read_back"):
+        assert [r["parent"] in call_ids for r in records if r["name"] == name] == \
+            [True] * len(calls)
+    assert after["clouds_served"] - before["clouds_served"] == 3
+    waited = sum(c["attrs"]["queue_wait_s"] for c in calls)
+    assert after["queue_wait_s"] - before["queue_wait_s"] == pytest.approx(waited)
 
 
 def test_batcher_coalesces_concurrent_requests(serving):
